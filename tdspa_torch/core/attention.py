@@ -1,0 +1,250 @@
+"""QK-norm parallel-path transformer stack (port of ``tdspa/core/attention.py``).
+
+* ``QKNormAttention``: bias-free Q/K/V projections, RMSNorm on the projected
+  query and key heads, a biased output projection over the flattened heads.
+* ``ParallelTransformerBlock``: one shared pre-LayerNorm; self- and
+  (optional) cross-attention from the same normalized queries, both added to
+  the raw residual; the GELU MLP follows its own LayerNorm. Cross-attention
+  K/V come from the unnormalized ``inputs_kv``.
+* ``TransformerStack``: ``layer_{i}`` blocks and a final bias-free
+  LayerNorm ``norm_encoder``.
+
+Parameter names and layouts are the flax tree's (``DenseGeneral`` kernels
+``[in, H, Dh]``, ``dense_out`` ``[H, Dh, out]``, ``Dense`` kernels
+``[in, out]``), so ``tdspa_torch.infer.convert`` maps checkpoints by name.
+Numerics follow flax: a layer with ``dtype`` casts both its input and its
+f32 parameters to ``dtype``; norms take f32 statistics with eps 1e-6 and
+return ``dtype``; ``gelu`` is the tanh approximation.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from tdspa_torch.kernels.attention import fused_masked_attention
+
+_FILL = torch.finfo(torch.float32).min
+NORM_EPS = 1e-6  # flax LayerNorm / RMSNorm default
+
+
+def lecun_normal_(param: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax ``lecun_normal``: truncated normal with variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(param, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+class DenseGeneral(nn.Module):
+    """flax ``Dense``/``DenseGeneral``: contracts the trailing ``in_shape``."""
+
+    def __init__(self, in_shape, out_shape, use_bias: bool, dtype, device):
+        super().__init__()
+        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(self.in_shape + self.out_shape, device=device))
+        self.bias = (
+            nn.Parameter(torch.empty(self.out_shape, device=device)) if use_bias else None
+        )
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            lecun_normal_(self.kernel, math.prod(self.in_shape), generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n_in, n_out = math.prod(self.in_shape), math.prod(self.out_shape)
+        lead = x.shape[: x.dim() - len(self.in_shape)]
+        w = self.kernel.to(self.dtype).reshape(n_in, n_out)
+        y = x.to(self.dtype).reshape(lead + (n_in,)) @ w
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype).reshape(n_out)
+        return y.reshape(lead + self.out_shape)
+
+
+def Dense(in_features: int, out_features: int, dtype, device) -> DenseGeneral:
+    return DenseGeneral((in_features,), (out_features,), True, dtype, device)
+
+
+class _Norm(nn.Module):
+    """flax ``LayerNorm(use_bias=False)`` (``centered``) or ``RMSNorm``."""
+
+    def __init__(self, width: int, centered: bool, dtype, device):
+        super().__init__()
+        self.centered = centered
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.empty(width, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean2 = (x32 * x32).mean(-1, keepdim=True)
+        if self.centered:  # flax's fast variance: E[x^2] - E[x]^2
+            mean = x32.mean(-1, keepdim=True)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
+            y = x32 - mean
+        else:
+            var, y = mean2, x32
+        mul = torch.rsqrt(var + NORM_EPS) * self.scale
+        return (y * mul).to(self.dtype)
+
+
+def LayerNorm(width, dtype, device) -> _Norm:
+    return _Norm(width, True, dtype, device)
+
+
+def RMSNorm(width, dtype, device) -> _Norm:
+    return _Norm(width, False, dtype, device)
+
+
+def masked_dot_product_attention(query, key, value, mask=None, compute_dtype=torch.float32):
+    """Multi-head attention core: compute-dtype products, f32 softmax.
+
+    query [*B Q H D], key/value [*B K H D], mask broadcastable to
+    [*B H Q K] (nonzero = attend). A fully masked query row gets uniform
+    weights: the mean of the values.
+    """
+    depth = query.shape[-1]
+    # sqrt(D) rounded to the compute dtype, as the JAX core divides by it.
+    root = float(torch.tensor(math.sqrt(depth), dtype=torch.float32).to(compute_dtype))
+    q = query.to(compute_dtype) / root
+    k = key.to(compute_dtype)
+    v = value.to(compute_dtype)
+    # Products of compute-dtype values accumulated in f32.
+    logits = torch.einsum("...qhd,...khd->...hqk", q.float(), k.float())
+    if mask is not None:
+        logits = torch.where(mask.bool(), logits, _FILL)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("...hqk,...khd->...qhd", probs.to(compute_dtype).float(), v.float())
+
+
+def _fused_attention_applicable(q, k, mask) -> bool:
+    """Kernel path: CUDA tensors, a key-only mask, matching batch dims."""
+    if not q.is_cuda:
+        return False
+    if mask is not None and (mask.shape[-2] != 1 or mask.shape[-3] != 1):
+        return False  # not a pure key (query-broadcast) mask
+    return q.shape[:-3] == k.shape[:-3]
+
+
+def _fused_attention(q, k, v, mask, out_dtype):
+    """Flatten leading batch dims and launch the fused kernel."""
+    lead = q.shape[:-3]
+    s, h, d = q.shape[-3:]
+    kv = k.shape[-3]
+    key_mask = None
+    if mask is not None:
+        key_mask = mask[..., 0, 0, :].expand(lead + (kv,)).reshape(-1, kv)
+
+    def flat(x, n):
+        return x.to(torch.bfloat16).reshape(-1, n, h, d).contiguous()
+
+    out = fused_masked_attention(
+        flat(q, s), flat(k, kv), flat(v, kv), key_mask, out_dtype=out_dtype
+    )
+    return out.reshape(lead + (s, h, d))
+
+
+class QKNormAttention(nn.Module):
+    """Multi-head attention with RMSNorm on the projected Q/K heads."""
+
+    def __init__(self, q_width: int, kv_width: int, num_heads: int, qk_size: int,
+                 v_size: int | None = None, dtype=torch.float32, use_fused: bool = False,
+                 residual_dtype=torch.float32, device="cpu"):
+        super().__init__()
+        v_size = qk_size if v_size is None else v_size
+        if qk_size % num_heads:
+            raise ValueError(f"{num_heads=} must divide {qk_size=}.")
+        if v_size % num_heads:
+            raise ValueError(f"{num_heads=} must divide {v_size=}.")
+        head_qk, head_v = qk_size // num_heads, v_size // num_heads
+        self.dtype, self.use_fused, self.residual_dtype = dtype, use_fused, residual_dtype
+        self.dense_query = DenseGeneral((q_width,), (num_heads, head_qk), False, dtype, device)
+        self.dense_key = DenseGeneral((kv_width,), (num_heads, head_qk), False, dtype, device)
+        self.norm_query = RMSNorm(head_qk, dtype, device)
+        self.norm_key = RMSNorm(head_qk, dtype, device)
+        self.dense_value = DenseGeneral((kv_width,), (num_heads, head_v), False, dtype, device)
+        self.dense_out = DenseGeneral((num_heads, head_v), (q_width,), True, dtype, device)
+
+    def forward(self, inputs_q, inputs_kv, mask=None):
+        query = self.norm_query(self.dense_query(inputs_q))
+        key = self.norm_key(self.dense_key(inputs_kv))
+        value = self.dense_value(inputs_kv)
+        if self.use_fused and _fused_attention_applicable(query, key, mask):
+            x = _fused_attention(query, key, value, mask, out_dtype=self.residual_dtype)
+        else:
+            x = masked_dot_product_attention(query, key, value, mask, compute_dtype=self.dtype)
+        return self.dense_out(x).to(self.residual_dtype)
+
+
+class ParallelTransformerBlock(nn.Module):
+    """Pre-LN block with parallel self- + cross-attention into one residual."""
+
+    def __init__(self, width: int, mlp_size: int, num_heads: int, qkv_size: int,
+                 kv_width: int | None = None, dtype=torch.float32, use_fused: bool = False,
+                 residual_dtype=torch.float32, device="cpu"):
+        super().__init__()
+        self.residual_dtype = residual_dtype
+        attn = dict(num_heads=num_heads, qk_size=qkv_size, dtype=dtype, use_fused=use_fused,
+                    residual_dtype=residual_dtype, device=device)
+        self.norm_q = LayerNorm(width, residual_dtype, device)
+        self.self_att = QKNormAttention(width, width, **attn)
+        self.cross_att = QKNormAttention(width, kv_width, **attn) if kv_width else None
+        self.norm_attn = LayerNorm(width, residual_dtype, device)
+        self.MLP_in = Dense(width, mlp_size, dtype, device)
+        self.MLP_out = Dense(mlp_size, width, dtype, device)
+
+    def forward(self, queries, inputs_kv=None, qq_mask=None, qk_mask=None):
+        normed_queries = self.norm_q(queries)
+        attn_out = queries.to(self.residual_dtype) + self.self_att(
+            normed_queries, normed_queries, qq_mask
+        )
+        if inputs_kv is not None:
+            attn_out = attn_out + self.cross_att(normed_queries, inputs_kv, qk_mask)
+        h = F.gelu(self.MLP_in(self.norm_attn(attn_out)), approximate="tanh")
+        return attn_out + self.MLP_out(h).to(self.residual_dtype)
+
+
+class TransformerStack(nn.Module):
+    """``num_layers`` ``ParallelTransformerBlock``s + final LayerNorm.
+
+    ``qq_mask`` gates self-attention, ``qk_mask`` cross-attention to
+    ``inputs_kv`` (which exists only when ``kv_width`` is given). A mask whose
+    rank equals its operand's gets a broadcast head axis inserted.
+    """
+
+    def __init__(self, width: int, qkv_size: int, num_heads: int, mlp_size: int,
+                 num_layers: int, kv_width: int | None = None, dtype=torch.float32,
+                 use_fused: bool = False, residual_dtype=torch.float32, device="cpu"):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", ParallelTransformerBlock(
+                width, mlp_size, num_heads, qkv_size, kv_width=kv_width, dtype=dtype,
+                use_fused=use_fused, residual_dtype=residual_dtype, device=device,
+            ))
+        self.norm_encoder = LayerNorm(width, residual_dtype, device)
+
+    def forward(self, queries, inputs_kv=None, qk_mask=None, qq_mask=None):
+        if qk_mask is not None and inputs_kv is not None and qk_mask.dim() == inputs_kv.dim():
+            qk_mask = qk_mask[..., None, :, :]
+        if qq_mask is not None and qq_mask.dim() == queries.dim():
+            qq_mask = qq_mask[..., None, :, :]
+        for i in range(self.num_layers):
+            queries = getattr(self, f"layer_{i}")(
+                queries, inputs_kv=inputs_kv, qq_mask=qq_mask, qk_mask=qk_mask
+            )
+        return self.norm_encoder(queries)
+
+
+def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialise every parameter of ``module`` as flax would (same laws)."""
+    for sub in module.modules():
+        if sub is not module and hasattr(sub, "reset_parameters"):
+            sub.reset_parameters(generator)

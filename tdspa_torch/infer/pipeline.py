@@ -1,0 +1,282 @@
+"""End-to-end single-video inference: video -> 3D track predictions (port of
+``tdspa/infer/pipeline.py``: ``fused_tail``, ``InferencePipeline`` and
+``save_results``).
+
+The front ends (tracking, DINOv2 features, video depth) are providers
+passed in; the ones the JAX package builds by default come with later slices
+(ROADMAP.md). Everything after them is ``fused_tail``: 2D->3D lifting,
+bilinear feature sampling, the support/query split and the
+``TrackAutoEncoder3D`` forward, all on the pipeline's device. With
+``dtype=bfloat16`` (the default) the model's attention runs in the fused
+CUDA kernel (``tdspa_torch/csrc/attention.cu``).
+
+Output schema (``predictions.npz`` + ``video_info.txt``) is the JAX
+package's.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from tdspa_torch.data.batch_prep import split_and_sample_queries
+from tdspa_torch.infer.checkpoint import check_params_structure, load_checkpoint
+from tdspa_torch.infer.convert import params_from_flax
+from tdspa_torch.models import TrackAutoEncoder3D
+from tdspa_torch.ops.geometry import (
+    lift_2d_to_3d,
+    sample_depth_features_for_tracks,
+    sample_dino_features_for_tracks,
+)
+from tdspa_torch.utils.device import resolve_device, synchronize
+
+logger = logging.getLogger(__name__)
+
+
+def fused_tail(
+    model,
+    tracks_2d,  # [N T 2]
+    visible,  # [N T 1]
+    dino_grid,  # [T Hp Wp D] | None
+    depth_maps,  # [T H W 1] | None
+    perm,  # int[N]
+    ts,  # int[num_queries]
+    num_support: int,
+    num_queries: int,
+    video_hw: tuple,
+    use_dino: bool = True,
+    use_depth: bool = True,
+):
+    """Lift + sample + split + autoencode; returns (predictions, batch, tracks_3d)."""
+    num_frames = tracks_2d.shape[1]
+    if use_depth and depth_maps is not None:
+        tracks_3d = lift_2d_to_3d(tracks_2d, depth_maps)
+    else:
+        tracks_3d = torch.cat([tracks_2d, torch.ones_like(tracks_2d[..., :1])], dim=-1)
+    dino_feats = (
+        sample_dino_features_for_tracks(
+            dino_grid, tracks_2d, (num_frames,) + tuple(video_hw) + (3,)
+        )
+        if use_dino and dino_grid is not None
+        else None
+    )
+    depth_feats = (
+        sample_depth_features_for_tracks(depth_maps, tracks_2d)
+        if use_depth and depth_maps is not None
+        else None
+    )
+    batch = split_and_sample_queries(
+        perm, ts, tracks_3d, visible, num_support=num_support,
+        num_queries=num_queries, num_frames=num_frames,
+        dino_features=dino_feats, depth_features=depth_feats,
+    )
+    return model(batch), batch, tracks_3d
+
+
+class InferencePipeline:
+    """Configured end-to-end pipeline with pluggable front ends.
+
+    ``params`` is a flax-layout parameter tree (e.g. from the JAX package or
+    ``load_params_tree``); ``checkpoint_path`` an ``.npz`` checkpoint. With
+    neither, the model keeps its seeded random initialisation.
+    """
+
+    def __init__(
+        self,
+        checkpoint_path: str | None = None,
+        params=None,
+        num_output_frames: int = 150,
+        use_dino: bool = True,
+        use_depth: bool = True,
+        num_query_points: int = 512,
+        num_support_tracks: int = 2048,
+        track_provider=None,
+        dino_extractor=None,
+        depth_provider=None,
+        model: TrackAutoEncoder3D | None = None,
+        seed: int = 0,
+        dtype=torch.bfloat16,
+        mesh=None,
+        projection_policy: str = "error",
+        residual_dtype=None,
+        tail_artifact: str | None = None,
+        device="cuda",
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: the sharded tail comes with the multi-GPU slice (ROADMAP.md)"
+            )
+        if tail_artifact is not None:
+            raise NotImplementedError(
+                "tail_artifact: exported tails come with the export slice (ROADMAP.md)"
+            )
+        self.device = resolve_device(device)
+        self.num_output_frames = num_output_frames
+        self.use_dino = use_dino
+        self.use_depth = use_depth
+        self.num_query_points = num_query_points
+        self.num_support_tracks = num_support_tracks
+        self.seed = seed
+        self.residual_dtype = residual_dtype or torch.float32
+        self.model = model or TrackAutoEncoder3D(
+            num_output_frames=num_output_frames,
+            use_dino=use_dino,
+            use_depth=use_depth,
+            dtype=dtype,
+            # The fused kernel computes in bf16: engage it only when bf16
+            # compute was asked for (and only on CUDA tensors).
+            fused_attention=(dtype == torch.bfloat16),
+            residual_dtype=self.residual_dtype,
+            device=self.device,
+            seed=42,
+        )
+        self._track_provider = track_provider
+        self._dino_extractor = dino_extractor
+        self._depth_provider = depth_provider
+        self.params = params
+        self.checkpoint_path = checkpoint_path
+        self.projection_policy = projection_policy
+        self.timings: dict[str, float] = {}
+        self.load_params()
+
+    @property
+    def track_provider(self):
+        if self._track_provider is None:
+            raise NotImplementedError(
+                "pass track_provider=...: the LK tracker on the GPU comes with "
+                "the tracking slice (ROADMAP.md)"
+            )
+        return self._track_provider
+
+    @property
+    def dino_extractor(self):
+        if self._dino_extractor is None:
+            raise NotImplementedError(
+                "pass dino_extractor=...: the DINOv2 extractor comes with the "
+                "DINO slice (ROADMAP.md)"
+            )
+        return self._dino_extractor
+
+    @property
+    def depth_provider(self):
+        if self._depth_provider is None:
+            raise NotImplementedError(
+                "pass depth_provider=...: the video-depth network comes with the "
+                "depth slice (ROADMAP.md)"
+            )
+        return self._depth_provider
+
+    def load_params(self):
+        """Load ``params`` or the checkpoint into the model, after a structure check."""
+        if self.params is not None:
+            state = params_from_flax(self.params)
+        elif self.checkpoint_path:
+            state = load_checkpoint(
+                self.checkpoint_path, projection_policy=self.projection_policy,
+                track_token_dim=self.model.track_token_dim, device=self.device,
+            )
+        else:
+            logger.warning("No checkpoint given; using randomly initialized params")
+            return
+        problems = check_params_structure(self.model.state_dict(), state)
+        if problems:
+            logger.warning("Checkpoint structure mismatches (%d): %s",
+                           len(problems), "; ".join(problems[:5]))
+        self.model.load_state_dict(state)
+
+    def split_indices(self, num_tracks: int, num_queries: int, num_frames: int):
+        """(perm, ts) for the support/query split, from ``seed`` on the CPU."""
+        gen = torch.Generator().manual_seed(self.seed)
+        perm = torch.randperm(num_tracks, generator=gen)
+        ts = torch.randint(0, num_frames, (num_queries,), generator=gen)
+        return perm.to(self.device), ts.to(self.device)
+
+    def _timed(self, name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        synchronize(self.device)
+        self.timings[name] = time.perf_counter() - t0
+        logger.info("%s: %.3fs", name, self.timings[name])
+        return out
+
+    def _tensor(self, x, dtype=None):
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    @torch.inference_mode()
+    def run_on_frames(self, video: np.ndarray, fps: float = 30.0) -> dict:
+        """Full pipeline on an in-memory [T H W 3] uint8 video."""
+        t, h, w = video.shape[:3]
+        wants_dev = getattr(self.track_provider, "prefers_device_input", None)
+        if wants_dev and wants_dev(video.shape):
+            raise NotImplementedError(
+                "device trackers and the streamed upload (track_chunks) come with "
+                "the tracking slice (ROADMAP.md)"
+            )
+        # One upload of the video, shared by the device front ends; host
+        # trackers work from the numpy copy.
+        video_dev = self._timed("video_upload", self._tensor, video)
+        track_data = self._timed("tracking", self.track_provider, video)
+        tracks_2d = self._tensor(track_data["tracks"], torch.float32)
+        visible = self._tensor(track_data["visible"], torch.float32)
+        dino_grid = (
+            self._tensor(self._timed("dino_features", self.dino_extractor, video_dev))
+            if self.use_dino else None
+        )
+        depth_maps = (
+            self._tensor(self._timed("depth", self.depth_provider, video_dev))
+            if self.use_depth else None
+        )
+
+        num_tracks = int(tracks_2d.shape[0])
+        num_support = min(self.num_support_tracks, max(num_tracks - 1, 1))
+        num_queries = min(self.num_query_points, max(num_tracks - num_support, 1))
+        perm, ts = self.split_indices(num_tracks, num_queries, t)
+
+        predictions, batch, tracks_3d = self._timed(
+            "fused_tail", fused_tail, self.model, tracks_2d, visible, dino_grid,
+            depth_maps, perm, ts, num_support, num_queries, (h, w),
+            self.use_dino, self.use_depth,
+        )
+        return {
+            "predictions": predictions,
+            "video": video,
+            "tracks_3d": tracks_3d,
+            "support_tracks": batch["support_tracks"][0],
+            "query_tracks": batch["query_tracks"][0],
+            "depth": depth_maps,
+            "fps": fps,
+            "timings": dict(self.timings),
+        }
+
+    def run(self, video_path: str) -> dict:
+        raise NotImplementedError(
+            "run(video_path): video decoding comes with the pipeline slice "
+            "(ROADMAP.md); call run_on_frames with a [T H W 3] uint8 array"
+        )
+
+
+def _numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def save_results(results: dict, output_dir: str) -> None:
+    """predictions.npz + video_info.txt (the reference's schema)."""
+    os.makedirs(output_dir, exist_ok=True)
+    pred_tracks = _numpy(results["predictions"].tracks[0])
+    pred_visible = _numpy(results["predictions"].visible_logits[0])
+    np.savez(
+        os.path.join(output_dir, "predictions.npz"),
+        tracks_3d=pred_tracks,
+        visible_logits=pred_visible,
+        query_tracks=_numpy(results["query_tracks"]),
+        support_tracks=_numpy(results["support_tracks"]),
+    )
+    with open(os.path.join(output_dir, "video_info.txt"), "w") as f:
+        f.write(f"FPS: {results['fps']}\n")
+        f.write(f"Frames: {pred_tracks.shape[1]}\n")
+        f.write(f"Query points: {pred_tracks.shape[0]}\n")
+    logger.info("Results saved to %s", output_dir)

@@ -50,3 +50,11 @@ def _drop_executable_mappings():
         return
     if n_maps > 30_000:
         jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU with nvcc (the port's CUDA kernels); "
+        "skips without one",
+    )
