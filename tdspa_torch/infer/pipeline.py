@@ -2,11 +2,15 @@
 ``tdspa/infer/pipeline.py``: ``fused_tail``, ``InferencePipeline`` and
 ``save_results``).
 
-The front ends (tracking, DINOv2 features, video depth) are providers
-passed in; the ones the JAX package builds by default come with later slices
-(ROADMAP.md). Everything after them is ``fused_tail``: 2D->3D lifting,
-bilinear feature sampling, the support/query split and the
-``TrackAutoEncoder3D`` forward, all on the pipeline's device. With
+The default tracker is the port's ``PyramidalLKTracker`` (LK kernel
+``tdspa_torch/csrc/lk.cu``, matcher kernel ``csrc/matcher.cu``); a video
+longer than ``upload_chunk_frames`` streams to the device in chunks, as YUV
+4:2:0, and is tracked chunk by chunk (``track_chunks``). DINOv2 features and
+video depth are providers passed in; the ones the JAX package builds by
+default come with later slices (ROADMAP.md). Everything after the front
+ends is ``fused_tail``: 2D->3D lifting, bilinear feature sampling, the
+support/query split and the ``TrackAutoEncoder3D`` forward, all on the
+pipeline's device. With
 ``dtype=bfloat16`` (the default) the model's attention runs in the fused
 CUDA kernel (``tdspa_torch/csrc/attention.cu``).
 
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from tdspa_torch.data.batch_prep import split_and_sample_queries
+from tdspa_torch.features.tracks import PyramidalLKTracker
 from tdspa_torch.infer.checkpoint import check_params_structure, load_checkpoint
 from tdspa_torch.infer.convert import params_from_flax
 from tdspa_torch.models import TrackAutoEncoder3D
@@ -94,6 +99,7 @@ class InferencePipeline:
         use_depth: bool = True,
         num_query_points: int = 512,
         num_support_tracks: int = 2048,
+        tracking_grid_size: int = 64,
         track_provider=None,
         dino_extractor=None,
         depth_provider=None,
@@ -101,8 +107,11 @@ class InferencePipeline:
         seed: int = 0,
         dtype=torch.bfloat16,
         mesh=None,
+        upload_chunk_frames: int = 40,
+        upload_yuv420: bool = True,
         projection_policy: str = "error",
         residual_dtype=None,
+        tracking_input_scale: float = 1.0,
         tail_artifact: str | None = None,
         device="cuda",
     ):
@@ -120,6 +129,13 @@ class InferencePipeline:
         self.use_depth = use_depth
         self.num_query_points = num_query_points
         self.num_support_tracks = num_support_tracks
+        self.tracking_grid_size = tracking_grid_size
+        # Chunk size of the streamed upload (multiples of 8 keep the depth
+        # extractor's 8-frame temporal groups aligned, as in JAX).
+        self.upload_chunk_frames = upload_chunk_frames
+        self.upload_yuv420 = upload_yuv420
+        # 0.5 tracks on half-resolution luma; coordinates stay full-res.
+        self.tracking_input_scale = tracking_input_scale
         self.seed = seed
         self.residual_dtype = residual_dtype or torch.float32
         self.model = model or TrackAutoEncoder3D(
@@ -146,9 +162,12 @@ class InferencePipeline:
     @property
     def track_provider(self):
         if self._track_provider is None:
-            raise NotImplementedError(
-                "pass track_provider=...: the LK tracker on the GPU comes with "
-                "the tracking slice (ROADMAP.md)"
+            # The JAX pipeline's fast configuration: NCC occlusion checks
+            # instead of the backward pass, 3 LK iterations, and the 'auto'
+            # policy (matcher on degraded content, rescue on collapse).
+            self._track_provider = PyramidalLKTracker(
+                grid_size=self.tracking_grid_size, fb_threshold=-1.0, iterations=3,
+                matcher="auto", input_scale=self.tracking_input_scale, device=self.device,
             )
         return self._track_provider
 
@@ -206,20 +225,55 @@ class InferencePipeline:
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor; on a GPU from pinned memory without
+        waiting, so that the next chunk's host work overlaps the copy."""
+        host = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _streamed_upload_and_tracking(self, video: np.ndarray):
+        """Upload in ``upload_chunk_frames`` chunks (YUV 4:2:0 on the wire
+        for even frames, RGB rebuilt on the device) and track chunk by chunk.
+        Returns (track_data, the device video or None)."""
+        from tdspa_torch.ops.yuv import rgb_to_yuv420, yuv420_to_rgb
+
+        t, h, w = video.shape[:3]
+        chunk = self.upload_chunk_frames
+        t0 = time.perf_counter()
+        chunks = []
+        for i in range(0, t, chunk):
+            if self.upload_yuv420 and h % 2 == 0 and w % 2 == 0:
+                planes = rgb_to_yuv420(video[i : i + chunk])
+                chunks.append(yuv420_to_rgb(*(self._upload(p) for p in planes)))
+            else:
+                chunks.append(self._upload(video[i : i + chunk]))
+        track_data = self.track_provider.track_chunks(chunks)
+        # DINO and depth are given providers (not streamed): they take the
+        # device video whole.
+        video_dev = torch.cat(chunks, dim=0) if self.use_dino or self.use_depth else None
+        synchronize(self.device)
+        self.timings["upload_tracking_features"] = time.perf_counter() - t0
+        logger.info("upload+tracking (streamed): %.3fs", self.timings["upload_tracking_features"])
+        return track_data, video_dev
+
     @torch.inference_mode()
     def run_on_frames(self, video: np.ndarray, fps: float = 30.0) -> dict:
         """Full pipeline on an in-memory [T H W 3] uint8 video."""
         t, h, w = video.shape[:3]
         wants_dev = getattr(self.track_provider, "prefers_device_input", None)
-        if wants_dev and wants_dev(video.shape):
-            raise NotImplementedError(
-                "device trackers and the streamed upload (track_chunks) come with "
-                "the tracking slice (ROADMAP.md)"
+        on_device_tracker = bool(wants_dev and wants_dev(video.shape))
+        chunk = self.upload_chunk_frames
+        if on_device_tracker and hasattr(self.track_provider, "track_chunks") and chunk and t > chunk:
+            track_data, video_dev = self._streamed_upload_and_tracking(video)
+        else:
+            # One upload of the video, shared by the device front ends; host
+            # trackers work from the numpy copy.
+            video_dev = self._timed("video_upload", self._tensor, video)
+            track_data = self._timed(
+                "tracking", self.track_provider, video_dev if on_device_tracker else video
             )
-        # One upload of the video, shared by the device front ends; host
-        # trackers work from the numpy copy.
-        video_dev = self._timed("video_upload", self._tensor, video)
-        track_data = self._timed("tracking", self.track_provider, video)
         tracks_2d = self._tensor(track_data["tracks"], torch.float32)
         visible = self._tensor(track_data["visible"], torch.float32)
         dino_grid = (

@@ -26,7 +26,15 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("attention",)
+# Extra flags per source. --fmad=false keeps the LK kernel from fusing a
+# product and a sum into one rounding, so its thresholded decisions see the
+# values its plain version computes.
+EXTRA_FLAGS = {"lk": ("--fmad=false",)}
+KERNELS = ("attention", "lk", "matcher")
+
+
+def flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
 def _nvcc() -> str:
@@ -44,7 +52,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha256(source + " ".join(flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -63,7 +71,7 @@ def build_all(names=KERNELS) -> dict[str, float]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )

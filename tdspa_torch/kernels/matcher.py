@@ -1,0 +1,114 @@
+"""Matcher cost patches: CUDA kernel wrapper + plain version.
+
+Replaces the TPU kernel ``tdspa/kernels/matcher.py::cost_patches_multi_pallas``
+(and ``cost_patches_pallas``, its one-template case) with
+``tdspa_torch/csrc/matcher.cu``: the (2R+1)^2 correlations between each
+point's template vectors and the feature map sampled bilinearly around the
+point's position in every frame. It computes the XLA path of the matcher
+(``tdspa/features/matcher.py::_cost_patches_multi``), whose border corners
+clamp one by one; the TPU kernel shifts border windows inward instead.
+
+``cost_patches_multi`` launches the kernel for CUDA tensors and runs
+``cost_patches_reference`` for CPU tensors; it never falls back from one to
+the other. ``cost_patches_multi.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from tdspa_torch.kernels import build
+from tdspa_torch.ops.geometry import bilinear_sample
+
+DIMS = (8, 16, 32)  # feature widths the kernel is built for
+
+
+def offset_grid(radius: int, device=None) -> torch.Tensor:
+    """[(2R+1)^2, 2] (x, y) integer offsets, row-major over y."""
+    r = torch.arange(-radius, radius + 1, dtype=torch.float32, device=device)
+    oy, ox = torch.meshgrid(r, r, indexing="ij")
+    return torch.stack([ox.reshape(-1), oy.reshape(-1)], dim=-1)
+
+
+def cost_patches_reference(feats, template_vecs, positions, radius: int = 4):
+    """Plain version: feats [T Hf Wf D], template_vecs [N M D], positions
+    [N T 2] in FEATURE pixels -> costs [N T M (2R+1)^2]."""
+    n, t = positions.shape[:2]
+    offs = offset_grid(radius, positions.device)  # [K2 2]
+    k2 = offs.shape[0]
+    coords = positions[:, None, :, :] + offs[:, None, :]  # [N K2 T 2]
+    patch = bilinear_sample(feats, coords.reshape(n * k2, t, 2)).reshape(n, k2, t, -1)
+    return torch.einsum("nktd,nmd->ntmk", patch, template_vecs)
+
+
+# tdspa_cost_patches(feats, tvec, fpos, out, N, T, Hf, Wf, D, M, R, stream)
+# in csrc/matcher.cu.
+ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+@functools.cache
+def _kernel():
+    fn = build.load("matcher").tdspa_cost_patches
+    fn.argtypes = ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def cost_patches_multi(feats, template_vecs, positions, radius: int = 4):
+    """Template-bank cost patches: [T Hf Wf D] feats, [N M D] templates,
+    [N T 2] feature-pixel positions -> [N T M (2R+1)^2] f32.
+
+    CUDA tensors launch the Hopper kernel, which takes f32 with D in
+    ``DIMS``; anything else raises. CPU tensors run
+    ``cost_patches_reference``.
+    """
+    if feats.dim() != 4 or template_vecs.dim() != 3 or positions.dim() != 3:
+        raise ValueError(
+            f"expected feats [T,Hf,Wf,D], template_vecs [N,M,D], positions [N,T,2]; got "
+            f"{tuple(feats.shape)}, {tuple(template_vecs.shape)}, {tuple(positions.shape)}"
+        )
+    t, hf, wf, dim = feats.shape
+    n, m = template_vecs.shape[:2]
+    if template_vecs.shape[2] != dim or positions.shape != (n, t, 2):
+        raise ValueError(
+            f"template_vecs {tuple(template_vecs.shape)} and positions "
+            f"{tuple(positions.shape)} do not fit feats {tuple(feats.shape)}"
+        )
+    if radius < 0:
+        raise ValueError(f"radius must be >= 0, got {radius}")
+    devices = {feats.device, template_vecs.device, positions.device}
+    if len(devices) != 1:
+        raise ValueError(f"feats, template_vecs and positions lie on different devices: {devices}")
+    if feats.device.type == "cpu":
+        return cost_patches_reference(feats, template_vecs, positions, radius)
+    if feats.device.type != "cuda":
+        raise ValueError(f"unsupported device {feats.device}")
+    if any(x.dtype != torch.float32 for x in (feats, template_vecs, positions)):
+        raise TypeError("kernel takes f32 feats, template_vecs and positions")
+    if dim not in DIMS:
+        raise ValueError(f"kernel takes feature width D in {DIMS}, got {dim}")
+    feats, template_vecs, positions = (
+        x.contiguous() for x in (feats, template_vecs, positions)
+    )
+    if feats.data_ptr() % 16 or template_vecs.data_ptr() % 16:
+        raise ValueError("kernel takes 16-byte aligned feats and template_vecs")
+    k2 = (2 * radius + 1) ** 2
+    out = torch.empty((n, t, m, k2), dtype=torch.float32, device=feats.device)
+    if out.numel() == 0 or hf * wf == 0:
+        return out
+    fn = _kernel()
+    with torch.cuda.device(feats.device):
+        rc = fn(
+            feats.data_ptr(), template_vecs.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            n, t, hf, wf, dim, m, radius, torch.cuda.current_stream(feats.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"cost-patch kernel launch failed: CUDA error {rc}")
+    cost_patches_multi.launches += 1
+    return out
+
+
+cost_patches_multi.launches = 0

@@ -39,8 +39,17 @@ def test_port_imports_without_jax_tdspa_or_triton():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["tdspa_loaded"] == []
     for name in ("tdspa_torch.kernels.attention", "tdspa_torch.infer.pipeline",
-                 "tdspa_torch.models.spa3d", "tdspa_torch.utils.jax_prng"):
+                 "tdspa_torch.models.spa3d", "tdspa_torch.utils.jax_prng",
+                 "tdspa_torch.kernels.lk", "tdspa_torch.kernels.matcher", "tdspa_torch.ops.lk",
+                 "tdspa_torch.ops.filters", "tdspa_torch.ops.warp", "tdspa_torch.ops.yuv",
+                 "tdspa_torch.features.matcher", "tdspa_torch.features.tracks",
+                 "tdspa_torch.utils.synthetic_video", "tdspa_torch.eval.tracking_quality"):
         assert name in report["modules"]
+
+
+def test_matcher_weights_are_a_byte_identical_copy():
+    ported = (REPO / "tdspa_torch" / "assets" / "matcher_default.npz").read_bytes()
+    assert ported == (REPO / "tdspa" / "assets" / "matcher_default.npz").read_bytes()
 
 
 def test_port_sources_name_no_jax_package():
@@ -56,12 +65,12 @@ def test_port_sources_name_no_jax_package():
 def test_gpu_entry_points_raise_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device exists")
-    proc = _run(
-        "from tdspa_torch.infer.pipeline import InferencePipeline\n"
-        "InferencePipeline()\n"
-    )
-    assert proc.returncode != 0
-    assert "no CUDA GPU" in proc.stderr and "device='cpu'" in proc.stderr
+    for code in ("from tdspa_torch.infer.pipeline import InferencePipeline\nInferencePipeline()\n",
+                 "from tdspa_torch.features.tracks import PyramidalLKTracker\n"
+                 "PyramidalLKTracker()\n"):
+        proc = _run(code)
+        assert proc.returncode != 0
+        assert "no CUDA GPU" in proc.stderr and "device='cpu'" in proc.stderr
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

@@ -1,0 +1,198 @@
+"""tdspa_torch's LK tracking ops against tdspa's: the plain LK version
+(``tdspa_torch.ops.lk``, the LK kernel's plain version) against
+``tdspa.ops.lk.track_video_lk``; the chunking arguments; chunked against
+unchunked tracking; the YUV 4:2:0 wire format; the denoise blur and the
+roll-stabilise warp.
+
+The CUDA kernel itself runs only on a GPU (``tests/test_torch_cuda.py`` and
+``chip_smoke.py``); on the CPU its wrapper runs the plain version.
+
+Tolerances: LK tracks within 1e-3 px and visibility agreement >= 99 %. Both
+sides do the same f32 arithmetic, but XLA and torch sum the 49-pixel window
+reductions in different orders; Gauss-Newton carries those last-bit
+differences from frame to frame, and the NCC > 0.7 / > 0.5 and min_eig
+thresholds can flip on them. The blur and the similarity fit hold at 1e-4
+(1-D convolution and reduction order); the warp at 1e-4 on luma in [0, 1]
+(its resampling is a matrix product, summed in another order).
+"""
+
+import ctypes
+import re
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tdspa.ops import filters as jax_filters
+from tdspa.ops import lk as jax_lk
+from tdspa.ops import warp as jax_warp
+from tdspa.ops import yuv as jax_yuv
+from tdspa.utils.synthetic_video import make_tracking_scene
+from tdspa_torch.features.tracks import PyramidalLKTracker, make_query_grid
+from tdspa_torch.kernels import lk as klk
+from tdspa_torch.kernels.lk import track_video_lk_kernel
+from tdspa_torch.ops import filters, lk, warp, yuv
+
+# The four configurations chip_smoke.py holds the kernel to.
+CONFIGS = {
+    "pipeline_default": dict(fb_threshold=-1.0, iterations=3),
+    "tracker_default": dict(fb_threshold=2.0, iterations=4),
+    "corr_rescue": dict(corr_radius=4, corr_rescue_level=2),
+    "half_res": dict(input_scale=0.5),
+}
+
+
+def _tiny_scene():
+    video, _, _ = make_tracking_scene(num_frames=8, height=64, width=96, grid_size=6)
+    return video, make_query_grid(64, 96, 6)
+
+
+def _pan_scene():
+    video, _, _ = make_tracking_scene(num_frames=24, height=128, width=128, grid_size=8,
+                                      pan=(8, 0))
+    return video, make_query_grid(128, 128, 8)
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_plain_lk_matches_jax(config):
+    video, queries = _tiny_scene()
+    want_tracks, want_vis = jax_lk.track_video_lk(video, queries, **CONFIGS[config])
+    got_tracks, got_vis = lk.track_video_lk(torch.from_numpy(video), queries, **CONFIGS[config])
+    assert got_tracks.shape == (36, 8, 2) and got_vis.shape == (36, 8, 1)
+    np.testing.assert_allclose(got_tracks.numpy(), np.asarray(want_tracks), atol=1e-3, rtol=0)
+    assert (got_vis.numpy() == np.asarray(want_vis)).mean() >= 0.99
+
+
+def test_cpu_wrapper_runs_the_plain_version_and_launches_nothing():
+    video, queries = _tiny_scene()
+    before = track_video_lk_kernel.launches
+    got = track_video_lk_kernel(torch.from_numpy(video), queries, return_velocity=True)
+    want = lk.track_video_lk(torch.from_numpy(video), queries, return_velocity=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert track_video_lk_kernel.launches == before == 0
+    with pytest.raises(TypeError, match="torch.Tensor"):
+        track_video_lk_kernel(video, queries)
+
+
+@pytest.mark.parametrize("input_scale", [1.0, 0.5])
+def test_chunking_arguments_at_their_defaults_change_nothing(input_scale):
+    video, queries = _tiny_scene()
+    v = torch.from_numpy(video)
+    kw = dict(CONFIGS["corr_rescue"], input_scale=input_scale, return_velocity=True)
+    plain = lk.track_video_lk(v, queries, **kw)
+    explicit = lk.track_video_lk(
+        v, queries, template_frame=lk.to_gray(v[:1])[0], template_pos=queries,
+        init_velocity=np.zeros_like(queries), **kw,
+    )
+    for a, b in zip(plain, explicit):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("input_scale", [1.0, 0.5])
+def test_chunked_tracking_matches_unchunked(input_scale):
+    """track_chunks (4 chunks) == one call on the whole video.
+
+    At input_scale 0.5 a chunk boundary passes each position through
+    full-resolution pixels (x * 2 + 0.5, then (x - 0.5) / 2), which rounds
+    where the value crosses a power of two, as on the TPU path; the lost
+    points of this fast pan carry that forward, so there the bound is 1e-3 px
+    on 99 % of the (point, frame) pairs.
+    """
+    video, queries = _pan_scene()
+    tracker = PyramidalLKTracker(grid_size=8, fb_threshold=-1.0, iterations=3,
+                                 input_scale=input_scale, device="cpu")
+    chunks = [torch.from_numpy(video[i : i + 7]) for i in range(0, 24, 7)]
+    got = tracker.track_chunks(chunks)
+    want_tracks, want_vis = lk.track_video_lk(
+        torch.from_numpy(video), queries, fb_threshold=-1.0, iterations=3, input_scale=input_scale
+    )
+    assert got["tracks"].shape == want_tracks.shape == (64, 24, 2)
+    if input_scale == 1.0:
+        torch.testing.assert_close(got["tracks"], want_tracks, atol=1e-5, rtol=0)
+        torch.testing.assert_close(got["visible"], want_vis, atol=0, rtol=0)
+    else:
+        err = (got["tracks"] - want_tracks).abs().amax(-1)
+        assert (err <= 1e-3).float().mean() >= 0.99
+        assert (got["visible"] == want_vis).float().mean() >= 0.99
+
+
+def test_yuv420_matches_jax_bit_for_bit(monkeypatch):
+    video, _ = _tiny_scene()
+    monkeypatch.setitem(sys.modules, "cv2", None)  # JAX's numpy encoder, as in the port
+    want = jax_yuv.rgb_to_yuv420(video)
+    got = yuv.rgb_to_yuv420(video)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    rgb = yuv.yuv420_to_rgb(*(torch.from_numpy(p) for p in got))
+    assert rgb.dtype == torch.uint8 and rgb.shape == video.shape
+    np.testing.assert_array_equal(rgb.numpy(), np.asarray(jax_yuv.yuv420_to_rgb(*want)))
+    with pytest.raises(ValueError, match="even"):
+        yuv.rgb_to_yuv420(video[:, :63])
+
+
+def _luma(video):
+    return (video.astype(np.float32) @ np.array([0.299, 0.587, 0.114], np.float32))
+
+
+def test_gaussian_blur_matches_jax():
+    video, _ = _tiny_scene()
+    gray = _luma(video)
+    for sigma in (3.0, 1.5):
+        want = jax_filters.gaussian_blur_video(gray, sigma=sigma)
+        got = filters.gaussian_blur_video(torch.from_numpy(gray), sigma=sigma)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+    flat = torch.full((2, 12, 16), 7.0)
+    torch.testing.assert_close(filters.gaussian_blur_video(flat), flat)
+
+
+def _roll_scene():
+    video, tracks, _ = make_tracking_scene(num_frames=8, height=64, width=96, grid_size=6,
+                                           rot_rate=float(np.deg2rad(6.0)))
+    return video, tracks
+
+
+def test_similarity_fit_matches_jax():
+    _, tracks = _roll_scene()
+    noisy = tracks + np.random.default_rng(0).normal(0, 0.3, tracks.shape).astype(np.float32)
+    noisy[:3] += 40.0  # outliers the reweighting must drop
+    want = jax_warp.fit_similarity_sequence(noisy)
+    got = warp.fit_similarity_sequence(torch.from_numpy(noisy))
+    assert set(got) == set(want)
+    for key in want:
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=1e-4, rtol=0,
+                                   err_msg=key)
+    assert float(got["angle_deg"][-1]) == pytest.approx(42.0, abs=2.0)
+    pos = noisy[:, :1].repeat(8, 1)
+    np.testing.assert_allclose(
+        warp.apply_similarity(got["A"], got["t"], torch.from_numpy(pos)).numpy(),
+        np.asarray(jax_warp.apply_similarity(want["A"], want["t"], jnp.asarray(pos))),
+        atol=1e-4, rtol=0,
+    )
+
+
+def test_warp_video_similarity_matches_jax():
+    video, tracks = _roll_scene()
+    gray = _luma(video) / 255.0
+    fit = jax_warp.fit_similarity_sequence(tracks)
+    a_mat, t_vec = np.asarray(fit["A"]), np.asarray(fit["t"])
+    want = jax_warp.warp_video_similarity(gray, a_mat, t_vec)
+    got = warp.warp_video_similarity(torch.from_numpy(gray), torch.from_numpy(a_mat),
+                                     torch.from_numpy(t_vec))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+
+
+def test_ctypes_signature_matches_the_cuda_entry_point():
+    """The kernel loads only on a GPU host; its C signature is checked here."""
+    src = (Path(klk.build.CSRC) / "lk.cu").read_text()
+    decl = re.search(r'extern "C" int tdspa_lk_track\(([^)]*)\)', src).group(1)
+    params = [p.strip() for p in decl.split(",")]
+    kinds = [
+        ctypes.c_void_p if "*" in p else ctypes.c_float if p.startswith("float") else ctypes.c_int
+        for p in params
+    ]
+    assert kinds == klk.ARGTYPES
+    assert "lk" in klk.build.KERNELS and "--fmad=false" in klk.build.flags("lk")

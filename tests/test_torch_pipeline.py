@@ -281,7 +281,9 @@ def test_pipeline_refuses_what_later_slices_bring(tmp_path):
     for kwargs in ({"mesh": object()}, {"tail_artifact": "tail.shlo"}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             InferencePipeline(model=model, device="cpu", **kwargs)
-    pipe = InferencePipeline(model=model, device="cpu")
+    # The default tracker runs (a 4x4 grid keeps it cheap); DINO and depth
+    # are what a later slice brings.
+    pipe = InferencePipeline(model=model, device="cpu", tracking_grid_size=4)
     for run in (lambda: pipe.run_on_frames(_video()), lambda: pipe.run("video.mp4")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             run()
