@@ -19,6 +19,9 @@ and the script exits non-zero:
    against the stated tolerance, the kernel's time, the plain version's,
    ``scaled_dot_product_attention``'s (timed only, as a yardstick) and the
    bound (the larger of bytes over 3.35 TB/s and flops over 989 TFLOP/s).
+   vit_attention_kernel: the same for the maskless ViT kernel
+   (``csrc/vit_attention.cu``) at the DINO and depth backbones' frames,
+   (8,1297,12,64) and (8,1370,12,64), and a ragged (2,77|1000,12,64).
 4. pipeline: ``InferencePipeline.run_on_frames`` at full width (150 frames
    of 512x512, 4096 tracks, 2048 support, 512 queries, DINO and depth
    features, bf16 model with fused attention, random weights from a seed)
@@ -42,10 +45,19 @@ and the script exits non-zero:
    tracker on the clean scene's video: streamed upload in 4 chunks as YUV
    4:2:0, 4 LK launches per run; chunked tracks equal one unchunked call;
    then the noisy video, whose chunks engage the matcher (8 launches).
+9. features: ``DinoFeatureExtractor`` and ``VideoDepthEstimator`` (ViT-B,
+   seeded weights) on the clean scene's whole video: [150,36,36,768] and
+   [150,512,512,1] (finite, depth >= 0), 228 ViT kernel launches each, and
+   their agreement with the same extractors on plain attention.
+10. pipeline_full: ``InferencePipeline()`` with no front end passed in, on
+   the clean scene: DINO and depth streamed per upload chunk; per run 456
+   ViT, 19 tail attention and 4 LK launches; the streamed features equal
+   one whole-video call of the same extractors; tracking quality as in 7;
+   ``save_results`` writes the reference's ``predictions.npz``.
 
-With ``--profile``, one more run of each full-width pipeline under
-``torch.profiler`` reports the device's busy time and the kernels that take
-it.
+With ``--profile``, one more run of each full-width pipeline's stage (and
+of each feature extractor) under ``torch.profiler`` reports the device's
+busy time and the kernels that take it.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on its
 main-path run and its totals per forward or video, and as the last line
@@ -57,9 +69,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -67,11 +81,18 @@ import torch
 
 from tdspa_torch.eval.tracking_quality import tracking_quality
 from tdspa_torch.features import matcher as matcher_lib
+from tdspa_torch.features.depth import VideoDepthEstimator
+from tdspa_torch.features.dino import DinoFeatureExtractor
 from tdspa_torch.features.tracks import PyramidalLKTracker, make_query_grid
-from tdspa_torch.infer.pipeline import InferencePipeline
+from tdspa_torch.infer.pipeline import InferencePipeline, save_results
 from tdspa_torch.kernels import build
 from tdspa_torch.kernels import lk as lk_kernel
-from tdspa_torch.kernels.attention import attention_reference, fused_masked_attention
+from tdspa_torch.kernels.attention import (
+    VIT_HEAD,
+    attention_reference,
+    fused_masked_attention,
+    vit_attention,
+)
 from tdspa_torch.kernels.matcher import cost_patches_multi, cost_patches_reference
 from tdspa_torch.models import TrackAutoEncoder3D
 from tdspa_torch.ops.geometry import bilinear_sample
@@ -93,9 +114,20 @@ KERNEL_RTOL_BF16_OUT = 2.0 ** -7
 # round differently inside every one of the 19 attentions and the
 # differences pass through 15 layers; relative to the output's range.
 PIPELINE_RTOL = 5e-2
+# DINO grid and depth maps, ViT kernel vs plain attention (bf16 backbones,
+# same weights): as for PIPELINE_RTOL, the two round differently inside each
+# of the 12 attentions of a backbone and the differences pass through the
+# layers after it; relative to the output's range.
+FEATURES_RTOL = 5e-2
+# Streamed (40-frame chunks) vs whole-video features: the same kernels on the
+# same 8-frame groups, so the backbones see identical batches; only the
+# resizes and the normalisation run on 40- instead of 150-frame batches,
+# whose f32 products cuBLAS may split otherwise (rounding-level changes
+# before the bf16 backbone). Relative to the output's range.
+STREAM_RTOL = 1e-2
 
 NUM_FRAMES, HEIGHT, WIDTH, GRID = 150, 512, 512, 64
-DINO_GRID = (37, 37, 768)
+DINO_GRID = (36, 36, 768)  # the extractor's grid of a 512x512 frame (resized to 504 = 36 x 14)
 RUNS = 3
 FORWARD_LAUNCHES = 3 + 4 + 4 + 4 + 4  # encoder, latent self, latent cross, decompress, readout
 
@@ -114,6 +146,17 @@ EDGE_SHAPES = [
     ("b1_masked", 1, 151, 151, 8, 96, True, 0),
 ]
 
+# The ViT backbones (DINOv2 and the depth network's, both ViT-B: 12 layers of
+# 12 heads of 64) run 8-frame groups: 19 per 150-frame video, whole or in the
+# pipeline's chunks of 40, 40, 40 and 30 frames (5 + 5 + 5 + 4 groups).
+VIT_LAUNCHES = 19 * 12  # per backbone per video
+# (name, B, S, K, H, launches per video): DINO frames are 36x36 patches + CLS,
+# the depth backbone's 37x37 + CLS; K not a multiple of the 64-key tile.
+VIT_SHAPES = [
+    ("dino_frames", 8, 1297, 1297, 12, VIT_LAUNCHES),
+    ("vda_frames", 8, 1370, 1370, 12, VIT_LAUNCHES),
+    ("ragged_k", 2, 77, 1000, 12, 0),
+]
 
 # The tracking scenes: the pipeline's width (150 frames of 512x512, a 64x64
 # grid of 4096 points) with exact ground truth; the noisy one degrades the
@@ -241,10 +284,62 @@ def attention_bound(batch, seq, kv_len, heads, depth, masked, out_bytes):
     return nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
 
 
+def compare_attention(phase, kernel, fields, q, k, v, mask, library_ms) -> dict:
+    """One attention kernel against ``attention_reference`` on the same bf16
+    inputs, in both output dtypes: error against the tolerance, kernel,
+    plain and bound times. Emits a row per dtype, raises on disagreement;
+    returns {out_dtype: (row, bytes_ms, flops_ms)}."""
+    batch, seq, heads, depth = q.shape
+    kv_len = k.shape[1]
+    rows = {}
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = kernel(q, k, v, mask, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        want = attention_reference(q, k, v, mask, out_dtype=out_dtype)
+        err = (got.float() - want.float()).abs()
+        rtol = KERNEL_RTOL_BF16_OUT if out_dtype == torch.bfloat16 else 0.0
+        excess = (err - KERNEL_ATOL - rtol * want.float().abs()).max().item()
+        finite = bool(torch.isfinite(got).all().item())
+        out_bytes = 4 if out_dtype == torch.float32 else 2
+        bytes_ms, flops_ms = attention_bound(batch, seq, kv_len, heads, depth, mask is not None,
+                                             out_bytes)
+        bound_ms = max(bytes_ms, flops_ms)
+        ms = cuda_ms(lambda: kernel(q, k, v, mask, out_dtype=out_dtype), iters=20)
+        plain_ms = cuda_ms(lambda: attention_reference(q, k, v, mask, out_dtype=out_dtype), iters=5)
+        row = dict(
+            **fields, B=batch, S=seq, K=kv_len, H=heads, D=depth,
+            out_dtype=str(out_dtype).removeprefix("torch."),
+            max_abs_err=err.max().item(), atol=KERNEL_ATOL, rtol=rtol, finite=finite,
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+            roofline_share=bound_ms / ms,
+        )
+        emit(phase, **row)
+        if not finite or excess > 0:
+            raise AssertionError(f"{phase}: kernel disagrees with its plain version: {row}")
+        rows[out_dtype] = (row, bytes_ms, flops_ms)
+        del got, want, err
+    return rows
+
+
+def add_per_run(totals: dict, rows: dict, count: int) -> None:
+    """Add ``count`` launches' worth of a shape's f32-output row to ``totals``."""
+    row, bytes_ms, flops_ms = rows[torch.float32]
+    totals["max_abs_err"] = max(totals["max_abs_err"], row["max_abs_err"])
+    for key, value in (("ms", row["ms"]), ("plain_ms", row["plain_ms"]),
+                       ("library_ms", row["library_ms"]), ("bytes_ms", bytes_ms),
+                       ("flops_ms", flops_ms)):
+        totals[key] += count * value
+
+
+def new_totals() -> dict:
+    return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "bytes_ms": 0.0, "flops_ms": 0.0}
+
+
 def phase_kernel() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    totals = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-              "bytes_ms": 0.0, "flops_ms": 0.0}
+    totals = new_totals()
     for name, batch, seq, kv_len, heads, depth, masked, per_forward in MAIN_PATH_SHAPES + EDGE_SHAPES:
         q, k, v, mask = attention_inputs(gen, batch, seq, kv_len, heads, depth, masked)
         # SDPA's layout is [B, H, S, D]; an additive mask keeps fully masked
@@ -259,36 +354,11 @@ def phase_kernel() -> dict:
             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=add_mask),
             iters=10,
         )
-        for out_dtype in (torch.float32, torch.bfloat16):
-            got = fused_masked_attention(q, k, v, mask, out_dtype=out_dtype)
-            torch.cuda.synchronize()
-            want = attention_reference(q, k, v, mask, out_dtype=out_dtype)
-            err = (got.float() - want.float()).abs()
-            rtol = KERNEL_RTOL_BF16_OUT if out_dtype == torch.bfloat16 else 0.0
-            excess = (err - KERNEL_ATOL - rtol * want.float().abs()).max().item()
-            finite = bool(torch.isfinite(got).all().item())
-            out_bytes = 4 if out_dtype == torch.float32 else 2
-            bytes_ms, flops_ms = attention_bound(batch, seq, kv_len, heads, depth, masked, out_bytes)
-            bound_ms = max(bytes_ms, flops_ms)
-            bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
-            ms = cuda_ms(lambda: fused_masked_attention(q, k, v, mask, out_dtype=out_dtype), iters=20)
-            plain_ms = cuda_ms(lambda: attention_reference(q, k, v, mask, out_dtype=out_dtype), iters=5)
-            row = dict(
-                shape=name, B=batch, S=seq, K=kv_len, H=heads, D=depth,
-                masked=bool(masked), out_dtype=str(out_dtype).removeprefix("torch."),
-                max_abs_err=err.max().item(), atol=KERNEL_ATOL, rtol=rtol, finite=finite,
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms,
-            )
-            emit("kernel", **row)
-            if not finite or excess > 0:
-                raise AssertionError(f"attention kernel disagrees with its plain version: {row}")
-            if out_dtype == torch.float32 and per_forward:
-                # One forward's attention work (the pipeline's residual stream is f32).
-                totals["max_abs_err"] = max(totals["max_abs_err"], row["max_abs_err"])
-                for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
-                                   ("bytes_ms", bytes_ms), ("flops_ms", flops_ms)):
-                    totals[key] += per_forward * value
+        rows = compare_attention("kernel", fused_masked_attention,
+                                 dict(shape=name, masked=bool(masked)), q, k, v, mask, library_ms)
+        if per_forward:
+            # One forward's attention work (the pipeline's residual stream is f32).
+            add_per_run(totals, rows, per_forward)
         if name == "fully_masked_rows":
             # Item 0 attends to nothing: the kernel returns the mean of its values.
             mean_v = v[0].float().mean(dim=0)  # [H, D]
@@ -298,6 +368,27 @@ def phase_kernel() -> dict:
             if dev > KERNEL_ATOL:
                 raise AssertionError(f"fully masked rows are not the mean of V: {dev}")
         del q, k, v, mask, add_mask, qt, kt, vt
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase_vit_kernel() -> dict:
+    """The maskless ViT kernel (``csrc/vit_attention.cu``) against
+    ``attention_reference`` at the DINO and depth backbones' frame shapes and
+    a ragged one; SDPA timed on the same inputs as a yardstick."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    totals = new_totals()
+    for name, batch, seq, kv_len, heads, per_video in VIT_SHAPES:
+        q, k, v, _ = attention_inputs(gen, batch, seq, kv_len, heads, VIT_HEAD, False)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), iters=10)
+        rows = compare_attention(
+            "vit_attention_kernel", lambda q, k, v, mask, out_dtype: vit_attention(q, k, v, out_dtype),
+            dict(shape=name, per_video=per_video), q, k, v, None, library_ms)
+        if per_video:
+            add_per_run(totals, rows, per_video)
+        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return totals
 
@@ -674,11 +765,144 @@ def phase_pipeline_tracked(scenes) -> dict:
             "matcher_launches": noisy_launches["matcher"], "runs": RUNS}
 
 
+def _rel_err(got, want) -> dict:
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().item()
+    return {"max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+            "ref_max_abs": scale, "rel_err": diff.max().item() / scale}
+
+
+def _timed_call(fn, *args):
+    """(result, wall ms) of one call, synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_features(scene, profile: bool = False) -> dict:
+    """DINOv2 features and video depth at full width (ViT-B, seeded weights)
+    on the clean scene's whole video: the ViT kernel's launches, output
+    shapes, depth finite and >= 0, and agreement with the same extractor on
+    plain attention; stage times (the second of two calls). With
+    ``profile``, one more call of each under the profiler."""
+    video = torch.from_numpy(scene["video"]).cuda()
+    dino = DinoFeatureExtractor(device="cuda", seed=SEED)
+    dino_plain = DinoFeatureExtractor(device="cuda", seed=SEED, fused_attention=False)
+    dino_plain.model.load_state_dict(dino.model.state_dict())
+    depth = VideoDepthEstimator(device="cuda", seed=SEED)
+    depth.init_params()
+    depth_plain = VideoDepthEstimator(device="cuda", params=depth.params, fused_attention=False)
+    expected = {"dino": [NUM_FRAMES, *DINO_GRID], "depth": [NUM_FRAMES, HEIGHT, WIDTH, 1]}
+    rows = {}
+    for name, kernel, plain in (("dino", dino, dino_plain), ("depth", depth, depth_plain)):
+        _timed_call(kernel, video)  # warm: library handles and algorithm choices
+        vit_attention.launches = 0
+        out, ms = _timed_call(kernel, video)
+        launches = vit_attention.launches
+        _timed_call(plain, video)
+        want, plain_ms = _timed_call(plain, video)
+        if vit_attention.launches != launches:
+            raise AssertionError(f"the plain {name} extractor launched the ViT kernel")
+        finite = bool(torch.isfinite(out).all().item())
+        row = dict(stage=name, shape=list(out.shape), dtype=str(out.dtype).removeprefix("torch."),
+                   launches=launches, ms=ms, plain_ms=plain_ms, finite=finite,
+                   min=out.min().item(), max=out.max().item(),
+                   vs_plain=dict(_rel_err(out, want), rtol=FEATURES_RTOL))
+        emit("features", **row)
+        if row["shape"] != expected[name] or not finite or launches != VIT_LAUNCHES:
+            raise AssertionError(f"{name} features wrong: {row}")
+        if name == "depth" and row["min"] < 0:
+            raise AssertionError(f"negative depth: {row}")
+        if not row["vs_plain"]["rel_err"] <= FEATURES_RTOL:
+            raise AssertionError(f"{name}: kernel and plain attention disagree: {row}")
+        rows[name] = row
+        del out, want
+        if profile:
+            phase_profile(name, lambda: kernel(video))
+    del dino, dino_plain, depth, depth_plain, video
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_pipeline_full(scene) -> dict:
+    """``InferencePipeline()`` with no front end passed in: tracking, DINO and
+    depth built by the pipeline and streamed per 40-frame chunk, then the
+    tail. Launches per run, streamed features against one whole-video call of
+    the same extractors, tracking quality, timings."""
+    pipe = InferencePipeline(num_output_frames=NUM_FRAMES, tracking_grid_size=GRID, seed=SEED,
+                             device="cuda")
+    tracker = pipe.track_provider
+    captured = {}
+    track_chunks = tracker.track_chunks
+
+    def recording(chunks):  # keeps the tracks and the video the stages saw
+        out = track_chunks(chunks)
+        captured.update(out, video=torch.cat(chunks, dim=0))
+        return out
+
+    tracker.track_chunks = recording
+    counters = {"vit_attention": vit_attention, "attention": fused_masked_attention,
+                "lk": lk_kernel.track_video_lk_kernel, "matcher": cost_patches_multi}
+    for fn in counters.values():
+        fn.launches = 0
+    timings = []
+    for _ in range(RUNS):
+        results = pipe.run_on_frames(scene["video"])
+        timings.append({k: v * 1e3 for k, v in results["timings"].items()})
+    launches = {name: fn.launches for name, fn in counters.items()}
+    per_run = {"vit_attention": 2 * VIT_LAUNCHES, "attention": FORWARD_LAUNCHES,
+               "lk": CHUNK_LAUNCHES, "matcher": 0}
+    preds = results["predictions"]
+    shapes = {"dino_grid": list(results["dino_grid"].shape), "depth": list(results["depth"].shape),
+              "tracks": list(preds.tracks.shape), "visible_logits": list(preds.visible_logits.shape)}
+    finite = bool(torch.isfinite(preds.tracks).all() and torch.isfinite(preds.visible_logits).all()
+                  and torch.isfinite(results["dino_grid"]).all()
+                  and torch.isfinite(results["depth"]).all())
+    depth_min = results["depth"].min().item()
+    with torch.inference_mode():
+        whole = {"dino_grid": pipe.dino_extractor(captured["video"]),
+                 "depth": pipe.depth_provider(captured["video"])}
+    stream = {k: dict(_rel_err(results[k], whole[k]), rtol=STREAM_RTOL) for k in whole}
+    quality = _quality(captured, scene)
+    with tempfile.TemporaryDirectory() as out_dir:  # the reference's output files
+        save_results(results, out_dir)
+        with np.load(os.path.join(out_dir, "predictions.npz")) as saved:
+            saved_shapes = {k: list(saved[k].shape) for k in saved.files}
+    emit("pipeline_full", scene="clean", runs=RUNS, launches=launches,
+         launches_per_run={k: v / RUNS for k, v in launches.items()}, tiers=dict(tracker.tiers),
+         shapes=shapes, finite=finite, depth_min=depth_min, streamed_vs_whole=stream,
+         quality=quality, jax_quality=JAX_QUALITY["clean"], saved=saved_shapes, timings_ms=timings,
+         upload_tracking_features_median_ms=statistics.median(
+             t["upload_tracking_features"] for t in timings[1:]),
+         fused_tail_median_ms=statistics.median(t["fused_tail"] for t in timings[1:]),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    expected_shapes = {"dino_grid": [NUM_FRAMES, *DINO_GRID], "depth": [NUM_FRAMES, HEIGHT, WIDTH, 1],
+                       "tracks": [1, 512, NUM_FRAMES, 3], "visible_logits": [1, 512, NUM_FRAMES, 1]}
+    expected_saved = {"tracks_3d": [512, NUM_FRAMES, 3], "visible_logits": [512, NUM_FRAMES, 1],
+                      "query_tracks": [512, NUM_FRAMES, 3], "support_tracks": [2048, NUM_FRAMES, 3]}
+    if shapes != expected_shapes or saved_shapes != expected_saved or not finite or depth_min < 0:
+        raise AssertionError(f"full pipeline output wrong: {shapes}, saved {saved_shapes}, "
+                             f"finite={finite}, depth min {depth_min}")
+    if launches != {k: v * RUNS for k, v in per_run.items()}:
+        raise AssertionError(f"full pipeline launches {launches} in {RUNS} runs; expected "
+                             f"{per_run} per run")
+    bad = {k: v for k, v in stream.items() if not v["rel_err"] <= STREAM_RTOL}
+    if bad:
+        raise AssertionError(f"streamed features differ from the whole-video call: {bad}")
+    _check_quality("clean", quality, "full pipeline")
+    tracker.track_chunks = track_chunks
+    del whole, results, captured
+    return {"pipeline": pipe, "launches": launches, "timings": timings}
+
+
 KERNEL_CLASSES = (  # (class, substrings of a device kernel's name), first match wins
+    ("vit_attention", ("vit_attention_kernel",)),
     ("attention", ("attention_fwd_kernel",)),
     ("lk", ("lk_track_kernel",)),
     ("matcher_costs", ("cost_patches_kernel",)),
-    ("conv", ("conv", "implicit", "winograd", "cudnn", "xmma_fprop", "sm90_xmma")),
+    ("conv", ("conv", "implicit", "winograd", "cudnn", "fprop", "dgrad")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "Kernel2")),
     ("gather", ("index", "gather")),
     ("reduce", ("reduce_kernel",)),
@@ -687,20 +911,21 @@ KERNEL_CLASSES = (  # (class, substrings of a device kernel's name), first match
 )
 
 
-def phase_profile(pipe, video, stage: str, top: int = 15) -> None:
-    """One more run of a pipeline stage under torch.profiler (``--profile``
-    only): device time by kernel class, the kernels that take most of it,
-    and the stage's device busy share (its kernel time over its wall time;
-    the profiler's host overhead lowers it). ``fused_tail``: a whole
-    ``run_on_frames`` with given front ends, whose other stages launch no
-    kernels (the video upload is a copy); ``upload_tracking_features``: the
-    streamed upload and tracking alone."""
+def phase_profile(stage: str, run, wall_ms=None, top: int = 15) -> None:
+    """One more run of a stage under torch.profiler (``--profile`` only):
+    device time by kernel class, the kernels that take most of it, and the
+    stage's device busy share (its kernel time over its wall time; the
+    profiler's host overhead lowers it). ``wall_ms`` reads the stage's own
+    timing after the run (a pipeline's ``timings``); without it the wall
+    time is the host clock around ``run``, synchronised."""
     from torch.profiler import ProfilerActivity, profile
 
-    run = (pipe.run_on_frames if stage == "fused_tail"
-           else pipe._streamed_upload_and_tracking)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(video)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        clock_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA") and not e.key.startswith("Activity Buffer")]
     device.sort(key=lambda e: e.self_device_time_total, reverse=True)
@@ -708,28 +933,45 @@ def phase_profile(pipe, video, stage: str, top: int = 15) -> None:
     for e in device:
         name = next((c for c, keys in KERNEL_CLASSES if any(k in e.key for k in keys)), "other")
         classes[name] = classes.get(name, 0.0) + e.self_device_time_total / 1e3
-    wall_ms = pipe.timings[stage] * 1e3
+    wall = wall_ms() if wall_ms is not None else clock_ms
     kernel_ms = sum(v for k, v in classes.items() if k != "memcpy")
-    emit("profile", stage=stage, wall_ms=wall_ms, kernel_ms=kernel_ms, by_class_ms=classes,
-         device_busy_share=kernel_ms / wall_ms,
+    emit("profile", stage=stage, wall_ms=wall, kernel_ms=kernel_ms, by_class_ms=classes,
+         device_busy_share=kernel_ms / wall,
          top_kernels=[{"name": e.key[:100], "calls": e.count,
                        "device_ms": e.self_device_time_total / 1e3} for e in device[:top]])
+
+
+def profile_pipeline(pipe, video, stage: str) -> None:
+    """``fused_tail``: a whole ``run_on_frames`` with given front ends, whose
+    other stages launch no kernels (the video upload is a copy);
+    ``upload_tracking_features``: the streamed upload, tracking and the
+    streamed features alone."""
+    run = pipe.run_on_frames if stage == "fused_tail" else pipe._streamed_upload_and_tracking
+    phase_profile(stage, lambda: run(video), wall_ms=lambda: pipe.timings[stage] * 1e3)
 
 
 def main(argv: list[str]) -> int:
     info = phase_device()
     phase_build()
     totals = phase_kernel()
+    vit_totals = phase_vit_kernel()
     path = phase_pipeline()
     if "--profile" in argv:
-        phase_profile(path["pipeline"], path["video"], "fused_tail")
+        profile_pipeline(path["pipeline"], path["video"], "fused_tail")
+    del path["pipeline"]
     scenes = make_scenes()
     lk = phase_lk_kernel(scenes["clean"])
     matcher = phase_matcher_kernel(scenes["clean"], lk.pop("tracks"))
     phase_tracking(scenes)
     tracked = phase_pipeline_tracked(scenes)
     if "--profile" in argv:
-        phase_profile(tracked["pipeline"], tracked["video"], "upload_tracking_features")
+        profile_pipeline(tracked["pipeline"], tracked["video"], "upload_tracking_features")
+    del tracked["pipeline"]
+    torch.cuda.empty_cache()
+    phase_features(scenes["clean"], profile="--profile" in argv)
+    full = phase_pipeline_full(scenes["clean"])
+    if "--profile" in argv:
+        profile_pipeline(full["pipeline"], scenes["clean"]["video"], "upload_tracking_features")
     bound_by = "bytes" if totals["bytes_ms"] >= totals["flops_ms"] else "operations"
     kernels = [{
         "name": "fused_masked_attention",
@@ -779,6 +1021,22 @@ def main(argv: list[str]) -> int:
         "library_ms": None,
         "per": ("one matcher pass over a video (4 launches with 1 template and 4 with 4, "
                 "4096 points x 150 frames); launches counted over the noisy-video pipeline run"),
+    })
+    kernels.append({
+        "name": "vit_attention",
+        "route": "cuda",
+        "source": "tdspa_torch/csrc/vit_attention.cu",
+        "replaces": "tdspa/kernels/attention.py:214",
+        "launches": full["launches"]["vit_attention"],
+        "max_abs_err": vit_totals["max_abs_err"],
+        "ms": vit_totals["ms"],
+        "plain_ms": vit_totals["plain_ms"],
+        "bound_ms": max(vit_totals["bytes_ms"], vit_totals["flops_ms"]),
+        "bound_by": "bytes" if vit_totals["bytes_ms"] >= vit_totals["flops_ms"] else "operations",
+        "library_ms": vit_totals["library_ms"],
+        "per": (f"one 150-frame video: {VIT_LAUNCHES} launches at (8,1297,12,64) for DINO and "
+                f"{VIT_LAUNCHES} at (8,1370,12,64) for depth, f32 output; launches counted over "
+                f"{RUNS} full-pipeline runs"),
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

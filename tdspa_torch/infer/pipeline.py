@@ -2,15 +2,17 @@
 ``tdspa/infer/pipeline.py``: ``fused_tail``, ``InferencePipeline`` and
 ``save_results``).
 
-The default tracker is the port's ``PyramidalLKTracker`` (LK kernel
-``tdspa_torch/csrc/lk.cu``, matcher kernel ``csrc/matcher.cu``); a video
+The default front ends are the port's own: ``PyramidalLKTracker`` (LK
+kernel ``tdspa_torch/csrc/lk.cu``, matcher kernel ``csrc/matcher.cu``),
+``DinoFeatureExtractor`` and ``VideoDepthEstimator`` (their ViT attention in
+``csrc/vit_attention.cu``), built lazily on the pipeline's device. A video
 longer than ``upload_chunk_frames`` streams to the device in chunks, as YUV
-4:2:0, and is tracked chunk by chunk (``track_chunks``). DINOv2 features and
-video depth are providers passed in; the ones the JAX package builds by
-default come with later slices (ROADMAP.md). Everything after the front
-ends is ``fused_tail``: 2D->3D lifting, bilinear feature sampling, the
-support/query split and the ``TrackAutoEncoder3D`` forward, all on the
-pipeline's device. With
+4:2:0; each chunk is tracked (``track_chunks``), and the port's own DINO
+and depth stages run on it as it arrives (depth only when the chunk is a
+multiple of its 8-frame temporal groups). Providers passed in take the
+whole device video. Everything after the front ends is ``fused_tail``:
+2D->3D lifting, bilinear feature sampling, the support/query split and the
+``TrackAutoEncoder3D`` forward, all on the pipeline's device. With
 ``dtype=bfloat16`` (the default) the model's attention runs in the fused
 CUDA kernel (``tdspa_torch/csrc/attention.cu``).
 
@@ -28,6 +30,8 @@ import numpy as np
 import torch
 
 from tdspa_torch.data.batch_prep import split_and_sample_queries
+from tdspa_torch.features.depth import VideoDepthEstimator
+from tdspa_torch.features.dino import DinoFeatureExtractor
 from tdspa_torch.features.tracks import PyramidalLKTracker
 from tdspa_torch.infer.checkpoint import check_params_structure, load_checkpoint
 from tdspa_torch.infer.convert import params_from_flax
@@ -100,6 +104,8 @@ class InferencePipeline:
         num_query_points: int = 512,
         num_support_tracks: int = 2048,
         tracking_grid_size: int = 64,
+        dino_model: str = "facebook/dinov2-base",
+        vda_encoder: str = "vitb",
         track_provider=None,
         dino_extractor=None,
         depth_provider=None,
@@ -111,6 +117,9 @@ class InferencePipeline:
         upload_yuv420: bool = True,
         projection_policy: str = "error",
         residual_dtype=None,
+        depth_output_scale: float = 1.0,
+        depth_input_size: int = 518,
+        gelu_approximate: bool = False,
         tracking_input_scale: float = 1.0,
         tail_artifact: str | None = None,
         device="cuda",
@@ -130,6 +139,8 @@ class InferencePipeline:
         self.num_query_points = num_query_points
         self.num_support_tracks = num_support_tracks
         self.tracking_grid_size = tracking_grid_size
+        self.dino_model_name = dino_model
+        self.vda_encoder = vda_encoder
         # Chunk size of the streamed upload (multiples of 8 keep the depth
         # extractor's 8-frame temporal groups aligned, as in JAX).
         self.upload_chunk_frames = upload_chunk_frames
@@ -137,7 +148,15 @@ class InferencePipeline:
         # 0.5 tracks on half-resolution luma; coordinates stay full-res.
         self.tracking_input_scale = tracking_input_scale
         self.seed = seed
+        # The model's stacks and the lazily built DINOv2/VDA backbones share
+        # the residual dtype (providers passed in keep their own).
         self.residual_dtype = residual_dtype or torch.float32
+        # < 1.0 runs the depth head's full-resolution tail smaller; < 518
+        # feeds the depth backbone smaller frames; tanh GELU in the lazily
+        # built backbones. All approximate serving knobs, off by default.
+        self.depth_output_scale = depth_output_scale
+        self.depth_input_size = depth_input_size
+        self.gelu_approximate = gelu_approximate
         self.model = model or TrackAutoEncoder3D(
             num_output_frames=num_output_frames,
             use_dino=use_dino,
@@ -174,18 +193,19 @@ class InferencePipeline:
     @property
     def dino_extractor(self):
         if self._dino_extractor is None:
-            raise NotImplementedError(
-                "pass dino_extractor=...: the DINOv2 extractor comes with the "
-                "DINO slice (ROADMAP.md)"
+            self._dino_extractor = DinoFeatureExtractor(
+                model_name=self.dino_model_name, residual_dtype=self.residual_dtype,
+                gelu_approximate=self.gelu_approximate, device=self.device,
             )
         return self._dino_extractor
 
     @property
     def depth_provider(self):
         if self._depth_provider is None:
-            raise NotImplementedError(
-                "pass depth_provider=...: the video-depth network comes with the "
-                "depth slice (ROADMAP.md)"
+            self._depth_provider = VideoDepthEstimator(
+                encoder=self.vda_encoder, residual_dtype=self.residual_dtype,
+                output_scale=self.depth_output_scale, input_size=self.depth_input_size,
+                gelu_approximate=self.gelu_approximate, device=self.device,
             )
         return self._depth_provider
 
@@ -235,12 +255,25 @@ class InferencePipeline:
 
     def _streamed_upload_and_tracking(self, video: np.ndarray):
         """Upload in ``upload_chunk_frames`` chunks (YUV 4:2:0 on the wire
-        for even frames, RGB rebuilt on the device) and track chunk by chunk.
-        Returns (track_data, the device video or None)."""
+        for even frames, RGB rebuilt on the device), track chunk by chunk,
+        and run the port's own DINO and depth stages on each chunk.
+
+        Returns (track_data, the device video or None, DINO grid or None,
+        depth maps or None): the whole video only where a provider that is
+        not streamed needs it, a feature only where it was streamed.
+        """
         from tdspa_torch.ops.yuv import rgb_to_yuv420, yuv420_to_rgb
 
         t, h, w = video.shape[:3]
         chunk = self.upload_chunk_frames
+        stream_dino = self.use_dino and isinstance(self.dino_extractor, DinoFeatureExtractor)
+        # Per-chunk depth equals the whole-video result only when chunk
+        # boundaries align with the estimator's temporal-attention groups.
+        stream_depth = (
+            self.use_depth
+            and isinstance(self.depth_provider, VideoDepthEstimator)
+            and chunk % self.depth_provider.frame_chunk == 0
+        )
         t0 = time.perf_counter()
         chunks = []
         for i in range(0, t, chunk):
@@ -250,13 +283,20 @@ class InferencePipeline:
             else:
                 chunks.append(self._upload(video[i : i + chunk]))
         track_data = self.track_provider.track_chunks(chunks)
-        # DINO and depth are given providers (not streamed): they take the
-        # device video whole.
-        video_dev = torch.cat(chunks, dim=0) if self.use_dino or self.use_depth else None
+        dino_parts = [self.dino_extractor(c) for c in chunks] if stream_dino else None
+        depth_parts = [self.depth_provider(c) for c in chunks] if stream_depth else None
+        # The whole video only for feature providers that are not streamed.
+        need_full = (self.use_dino and not stream_dino) or (self.use_depth and not stream_depth)
+        video_dev = torch.cat(chunks, dim=0) if need_full else None
+        dino_grid = torch.cat(dino_parts, dim=0) if dino_parts is not None else None
+        depth_maps = torch.cat(depth_parts, dim=0) if depth_parts is not None else None
+        # One queue on the device: the sync waits for the upload, the tracking
+        # and every chunk's features, so none of them leaks into the tail.
         synchronize(self.device)
         self.timings["upload_tracking_features"] = time.perf_counter() - t0
-        logger.info("upload+tracking (streamed): %.3fs", self.timings["upload_tracking_features"])
-        return track_data, video_dev
+        logger.info("upload+tracking%s%s (streamed): %.3fs", "+dino" if stream_dino else "",
+                    "+depth" if stream_depth else "", self.timings["upload_tracking_features"])
+        return track_data, video_dev, dino_grid, depth_maps
 
     @torch.inference_mode()
     def run_on_frames(self, video: np.ndarray, fps: float = 30.0) -> dict:
@@ -265,8 +305,9 @@ class InferencePipeline:
         wants_dev = getattr(self.track_provider, "prefers_device_input", None)
         on_device_tracker = bool(wants_dev and wants_dev(video.shape))
         chunk = self.upload_chunk_frames
+        dino_grid = depth_maps = None
         if on_device_tracker and hasattr(self.track_provider, "track_chunks") and chunk and t > chunk:
-            track_data, video_dev = self._streamed_upload_and_tracking(video)
+            track_data, video_dev, dino_grid, depth_maps = self._streamed_upload_and_tracking(video)
         else:
             # One upload of the video, shared by the device front ends; host
             # trackers work from the numpy copy.
@@ -276,14 +317,10 @@ class InferencePipeline:
             )
         tracks_2d = self._tensor(track_data["tracks"], torch.float32)
         visible = self._tensor(track_data["visible"], torch.float32)
-        dino_grid = (
-            self._tensor(self._timed("dino_features", self.dino_extractor, video_dev))
-            if self.use_dino else None
-        )
-        depth_maps = (
-            self._tensor(self._timed("depth", self.depth_provider, video_dev))
-            if self.use_depth else None
-        )
+        if self.use_dino and dino_grid is None:
+            dino_grid = self._tensor(self._timed("dino_features", self.dino_extractor, video_dev))
+        if self.use_depth and depth_maps is None:
+            depth_maps = self._tensor(self._timed("depth", self.depth_provider, video_dev))
 
         num_tracks = int(tracks_2d.shape[0])
         num_support = min(self.num_support_tracks, max(num_tracks - 1, 1))
@@ -302,6 +339,7 @@ class InferencePipeline:
             "support_tracks": batch["support_tracks"][0],
             "query_tracks": batch["query_tracks"][0],
             "depth": depth_maps,
+            "dino_grid": dino_grid,
             "fps": fps,
             "timings": dict(self.timings),
         }

@@ -1,17 +1,24 @@
-"""Fused key-masked multi-head attention: CUDA kernel wrapper + plain version.
+"""Multi-head attention: CUDA kernel wrappers + their plain version.
 
-Replaces the TPU kernels of ``tdspa/kernels/attention.py`` on the 3DSPA path:
-``_fused_forward`` / ``_mha_kernel`` (whole KV per batch tile) and
-``_flash_attention`` / ``_mha_flash_kernel`` (KV-blocked online softmax).
-One Hopper kernel, ``tdspa_torch/csrc/attention.cu``, computes both: it
-loops over 64-key tiles with an f32 online softmax, so the TPU's VMEM-fit
-dispatch (``fused_attention_fits``, ``_pick_kv_block``, ``_pick_tile``) has
-no counterpart. Device-memory bytes bound it on an H100 (see the source's
-note); it keeps the [S, K] logits and probabilities on chip.
+Replaces the TPU kernels of ``tdspa/kernels/attention.py``:
 
-``fused_masked_attention`` launches the kernel for CUDA tensors and runs
-``attention_reference`` for CPU tensors; it never falls back from one to the
-other. Forward only: the training slice adds the backward.
+* on the 3DSPA path, ``_fused_forward`` / ``_mha_kernel`` (whole KV per
+  batch tile) and ``_flash_attention`` / ``_mha_flash_kernel`` (KV-blocked
+  online softmax). One Hopper kernel, ``tdspa_torch/csrc/attention.cu``,
+  computes both (``fused_masked_attention``): it loops over 64-key tiles
+  with an f32 online softmax, so the TPU's VMEM-fit dispatch
+  (``fused_attention_fits``, ``_pick_kv_block``, ``_pick_tile``) has no
+  counterpart. Device-memory bytes bound it on an H100 (see the source's
+  note); it keeps the [S, K] logits and probabilities on chip.
+* in the DINOv2 and VDA ViTs, ``_flash_perhead`` /
+  ``_mha_flash_perhead_kernel`` (maskless, about 1.3k tokens per frame,
+  head width 64): ``tdspa_torch/csrc/vit_attention.cu`` (``vit_attention``),
+  which operations bound on an H100.
+
+Both wrappers launch their kernel for CUDA tensors and run
+``attention_reference`` for CPU tensors; neither falls back from one to the
+other. Each counts its own launches. Forward only: the training slice adds
+the backward.
 """
 
 from __future__ import annotations
@@ -149,3 +156,65 @@ def fused_masked_attention(q, k, v, key_mask=None, out_dtype=torch.float32):
 
 
 fused_masked_attention.launches = 0
+
+VIT_ROWS = 128  # query rows per block of csrc/vit_attention.cu (8 warps of 16)
+VIT_HEAD = 64  # the head width it takes (every DINOv2 preset)
+# tdspa_vit_attention_forward(q, k, v, out, out_bf16, B, S, K, H, D,
+#                             q_blocks, scale, stream) in csrc/vit_attention.cu.
+VIT_ARGTYPES = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+)
+
+
+@functools.cache
+def _vit_kernel():
+    fn = build.load("vit_attention").tdspa_vit_attention_forward
+    fn.argtypes = VIT_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def vit_attention(q, k, v, out_dtype=torch.float32):
+    """Maskless attention of ViT frames: q [B,S,H,D], k/v [B,K,H,D] -> [B,S,H,D].
+
+    CUDA tensors launch the Hopper kernel, which takes contiguous bf16
+    q/k/v with D = 64; anything else raises. CPU tensors run
+    ``attention_reference(q, k, v, None)``. ``vit_attention.launches``
+    counts kernel launches (apart from ``fused_masked_attention``'s).
+    """
+    _check(q, k, v, None, out_dtype)
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, None, out_dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise TypeError(f"kernel takes bf16 q/k/v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("kernel takes contiguous, 16-byte aligned q/k/v")
+    batch, seq, heads, depth = q.shape
+    kv_len = k.shape[1]
+    if depth != VIT_HEAD or seq == 0 or kv_len == 0:
+        raise ValueError(f"kernel takes D = {VIT_HEAD} and S, K > 0; got {tuple(q.shape)}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "vit_attention is forward-only; the backward comes with the "
+            "training slice (ROADMAP.md queue 1, item 10)"
+        )
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    fn = _vit_kernel()
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), batch, seq, kv_len, heads, depth,
+            -(-seq // VIT_ROWS), 1.0 / math.sqrt(depth),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"ViT attention kernel launch failed: CUDA error {rc}")
+    vit_attention.launches += 1
+    return out
+
+
+vit_attention.launches = 0

@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 # product and a sum into one rounding, so its thresholded decisions see the
 # values its plain version computes.
 EXTRA_FLAGS = {"lk": ("--fmad=false",)}
-KERNELS = ("attention", "lk", "matcher")
+KERNELS = ("attention", "vit_attention", "lk", "matcher")
 
 
 def flags(name: str) -> tuple[str, ...]:

@@ -1,8 +1,9 @@
 """tdspa_torch.kernels.attention against the TPU kernels of
 tdspa.kernels.attention (run in interpret mode) and the JAX attention core.
 
-The CUDA kernel itself runs only on a GPU (``tests/test_torch_cuda.py`` and
-``chip_smoke.py``); on the CPU the wrapper runs its plain version,
+The CUDA kernels themselves run only on a GPU (``tests/test_torch_cuda.py``
+and ``chip_smoke.py``); on the CPU both wrappers (``fused_masked_attention``
+and the ViT's maskless ``vit_attention``) run their plain version,
 ``attention_reference``, which these tests hold to the Pallas bodies.
 
 Tolerance: both sides take bf16 products with f32 accumulation and round the
@@ -21,9 +22,10 @@ import pytest
 import torch
 
 from tdspa.core.attention import masked_dot_product_attention
-from tdspa.kernels.attention import _flash_attention, fused_masked_attention as jax_fused
+from tdspa.kernels.attention import _flash_attention, _flash_perhead
+from tdspa.kernels.attention import fused_masked_attention as jax_fused
 from tdspa_torch.kernels import attention as ka
-from tdspa_torch.kernels.attention import attention_reference, fused_masked_attention
+from tdspa_torch.kernels.attention import attention_reference, fused_masked_attention, vit_attention
 
 ATOL = 2e-2
 
@@ -84,6 +86,22 @@ def test_reference_matches_pallas_flash_body_ragged_k(out_dtype, masked):
                                **_tol(out_dtype))
 
 
+@pytest.mark.parametrize("out_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("seq,kv_len", [(21, 21), (9, 40)])
+def test_reference_matches_pallas_perhead_body_ragged_k(out_dtype, seq, kv_len):
+    """``_mha_flash_perhead_kernel`` (the ViT frames' maskless body, D=64):
+    with 16-key blocks the last block is ragged and its tail is excluded by
+    index from the static kv_len, as the ViT kernel does."""
+    q, k, v, _ = _inputs(6, 2, seq, kv_len, 3, 64, masked=False)
+    jd, td = _dtypes(out_dtype)
+    want = _flash_perhead(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kb=16,
+                          interpret=True, out_dtype=jd)
+    got = attention_reference(*_torch(q, k, v), None, out_dtype=td)
+    assert got.dtype == td
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               **_tol(out_dtype))
+
+
 def test_reference_matches_jax_attention_core():
     """The JAX core scales q in bf16 before the product, the kernels scale the
     f32 logits after: equal within the bf16 tolerance."""
@@ -113,6 +131,18 @@ def test_cpu_dispatch_runs_the_plain_version_and_launches_nothing(mask_dtype):
     assert fused_masked_attention.launches == before == 0
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_vit_cpu_dispatch_runs_the_plain_version_and_launches_nothing(out_dtype):
+    q, k, v, _ = _torch(*_inputs(7, 2, 6, 9, 2, 64, masked=False))
+    got = vit_attention(q, k, v, out_dtype=out_dtype)
+    torch.testing.assert_close(got, attention_reference(q, k, v, None, out_dtype), rtol=0, atol=0)
+    assert vit_attention.launches == fused_masked_attention.launches == 0
+    with pytest.raises(ValueError, match="batch, heads or width"):
+        vit_attention(q, k[:, :, :1], v[:, :, :1])
+    with pytest.raises(ValueError, match="out_dtype"):
+        vit_attention(q, k, v, out_dtype=torch.float16)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     q, k, v, mask = _torch(*_inputs(5, 2, 6, 9, 2, 96))
     with pytest.raises(ValueError, match="batch, heads or width"):
@@ -134,13 +164,18 @@ def test_launch_shape_covers_every_query_row(batch, seq, heads):
     assert (q_blocks - 1) * warps * 16 < seq  # no block without a row
 
 
-def test_ctypes_signature_matches_the_cuda_entry_point():
-    """The kernel loads only on a GPU host; its C signature is checked here."""
-    src = (Path(ka.build.CSRC) / "attention.cu").read_text()
-    decl = re.search(r'extern "C" int tdspa_attention_forward\(([^)]*)\)', src).group(1)
+@pytest.mark.parametrize("source,symbol,argtypes", [
+    ("attention.cu", "tdspa_attention_forward", ka.ARGTYPES),
+    ("vit_attention.cu", "tdspa_vit_attention_forward", ka.VIT_ARGTYPES),
+])
+def test_ctypes_signature_matches_the_cuda_entry_point(source, symbol, argtypes):
+    """The kernels load only on a GPU host; their C signatures are checked here."""
+    src = (Path(ka.build.CSRC) / source).read_text()
+    decl = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src).group(1)
     params = [p.strip() for p in decl.split(",")]
     kinds = [
         ctypes.c_void_p if "*" in p else ctypes.c_float if p.startswith("float") else ctypes.c_int
         for p in params
     ]
-    assert kinds == ka.ARGTYPES
+    assert kinds == argtypes
+    assert source.removesuffix(".cu") in ka.build.KERNELS

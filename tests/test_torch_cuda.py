@@ -6,9 +6,10 @@ Imports no JAX, so it also runs on a GPU host that has none (the repository's
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: kernel vs plain version as in ``tests/test_torch_attention.py``
-(2e-2 abs, + 2**-7 rel for a bf16 output); the tiny bf16 model with the
-kernel vs the same model with the plain attention path, 5e-2 of the output
-range (the two round differently inside every attention).
+(2e-2 abs, + 2**-7 rel for a bf16 output), for both attention kernels; the
+tiny bf16 model or ViT with the kernel vs the same one with the plain
+attention path, 5e-2 of the output range (the two round differently inside
+every attention).
 """
 
 import pytest
@@ -80,6 +81,63 @@ def test_tiny_model_runs_the_kernel_and_matches_the_plain_path(cuda_device):
     for name in ("tracks", "visible_logits"):
         torch.testing.assert_close(getattr(got, name), getattr(want, name),
                                    atol=5e-2 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1297, 1297, 12), (2, 1370, 1370, 12), (2, 77, 1000, 4),
+                                   (3, 200, 129, 2), (1, 1, 1, 1)])
+def test_vit_kernel_matches_plain_version(cuda_device, shape):
+    """The maskless ViT kernel (head width 64): the main-path frames, K not a
+    multiple of its 64-key tile, S not a multiple of its 128-row block."""
+    from tdspa_torch.kernels.attention import vit_attention
+
+    batch, seq, kv_len, heads = shape
+    q, k, v, _ = _inputs(cuda_device, batch, seq, kv_len, heads, 64, False)
+    for out_dtype, rtol in ((torch.float32, 0.0), (torch.bfloat16, 2.0 ** -7)):
+        vit_before, fused_before = vit_attention.launches, fused_masked_attention.launches
+        got = vit_attention(q, k, v, out_dtype=out_dtype)
+        assert vit_attention.launches == vit_before + 1
+        assert fused_masked_attention.launches == fused_before  # counted apart
+        want = attention_reference(q, k, v, None, out_dtype=out_dtype)
+        assert got.dtype == out_dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=ATOL, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_vit_kernel_refuses_what_it_does_not_take(cuda_device):
+    from tdspa_torch.kernels.attention import vit_attention
+
+    q, k, v, _ = _inputs(cuda_device, 1, 4, 4, 2, 64, False)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        vit_attention(q.clone().requires_grad_(), k, v)
+    with pytest.raises(TypeError, match="bf16"):
+        vit_attention(q.float(), k, v)
+    with pytest.raises(ValueError, match="D = 64"):
+        vit_attention(*(_inputs(cuda_device, 1, 4, 4, 1, 96, False)[:3]))
+    with pytest.raises(ValueError, match="contiguous"):
+        vit_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+
+
+@pytest.mark.cuda
+def test_tiny_vit_runs_the_kernel_and_matches_the_plain_path(cuda_device):
+    """A 2-layer bf16 ViT of head width 64: one launch per layer, and within
+    5e-2 of the output range of the same weights on the plain path."""
+    from tdspa_torch.core.layers import init_parameters
+    from tdspa_torch.features.vit import Dinov2, ViTConfig
+    from tdspa_torch.kernels.attention import vit_attention
+
+    config = ViTConfig(hidden_size=128, num_layers=2, num_heads=2, image_size=56)
+    fused = Dinov2(config, dtype=torch.bfloat16, device=cuda_device)
+    init_parameters(fused, 0, cuda_device)
+    plain = Dinov2(config, dtype=torch.bfloat16, use_fused=False, device=cuda_device)
+    plain.load_state_dict(fused.state_dict())
+    img = torch.randn((3, 70, 84, 3), generator=torch.Generator(cuda_device).manual_seed(1),
+                      device=cuda_device)
+    before = vit_attention.launches
+    with torch.inference_mode():
+        got, want = fused(img), plain(img)
+    assert vit_attention.launches - before == 2
+    torch.testing.assert_close(got, want, atol=5e-2 * want.abs().max().item(), rtol=0)
 
 
 LK_CONFIGS = [dict(fb_threshold=-1.0, iterations=3), dict(fb_threshold=2.0, iterations=4),

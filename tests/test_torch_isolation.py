@@ -43,7 +43,10 @@ def test_port_imports_without_jax_tdspa_or_triton():
                  "tdspa_torch.kernels.lk", "tdspa_torch.kernels.matcher", "tdspa_torch.ops.lk",
                  "tdspa_torch.ops.filters", "tdspa_torch.ops.warp", "tdspa_torch.ops.yuv",
                  "tdspa_torch.features.matcher", "tdspa_torch.features.tracks",
-                 "tdspa_torch.utils.synthetic_video", "tdspa_torch.eval.tracking_quality"):
+                 "tdspa_torch.utils.synthetic_video", "tdspa_torch.eval.tracking_quality",
+                 "tdspa_torch.features.vit", "tdspa_torch.features.dino",
+                 "tdspa_torch.features.depth", "tdspa_torch.core.layers",
+                 "tdspa_torch.ops.resize"):
         assert name in report["modules"]
 
 
@@ -67,7 +70,11 @@ def test_gpu_entry_points_raise_without_a_gpu():
         pytest.skip("a GPU is present: the default device exists")
     for code in ("from tdspa_torch.infer.pipeline import InferencePipeline\nInferencePipeline()\n",
                  "from tdspa_torch.features.tracks import PyramidalLKTracker\n"
-                 "PyramidalLKTracker()\n"):
+                 "PyramidalLKTracker()\n",
+                 "from tdspa_torch.features.dino import DinoFeatureExtractor\n"
+                 "DinoFeatureExtractor()\n",
+                 "from tdspa_torch.features.depth import VideoDepthEstimator\n"
+                 "VideoDepthEstimator()\n"):
         proc = _run(code)
         assert proc.returncode != 0
         assert "no CUDA GPU" in proc.stderr and "device='cpu'" in proc.stderr

@@ -281,12 +281,123 @@ def test_pipeline_refuses_what_later_slices_bring(tmp_path):
     for kwargs in ({"mesh": object()}, {"tail_artifact": "tail.shlo"}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             InferencePipeline(model=model, device="cpu", **kwargs)
-    # The default tracker runs (a 4x4 grid keeps it cheap); DINO and depth
-    # are what a later slice brings.
+    # DINO and depth are the port's own now (test below); decoding a video
+    # file is what a later slice brings.
     pipe = InferencePipeline(model=model, device="cpu", tracking_grid_size=4)
-    for run in (lambda: pipe.run_on_frames(_video()), lambda: pipe.run("video.mp4")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            run()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        pipe.run("video.mp4")
+
+
+# The lazily built front ends at tiny size: a one-layer DINO ViT of the
+# tail's feature width (768) and the tiny depth estimator of
+# tests/test_torch_depth.py in 2-frame groups, both f32.
+TINY_DINO = dict(hidden_size=768, num_layers=1, num_heads=12, patch_size=14, image_size=28)
+TINY_DEPTH = dict(hidden_size=32, num_layers=4, num_heads=2, patch_size=14, image_size=28)
+TINY_HEAD = {"features": 16, "out_channels": [8, 16, 24, 32], "layer_idxs": [0, 1, 2, 3]}
+# Streamed vs whole on the CPU: the same f32 arithmetic on the same frames;
+# only the resizes' and DINO's products run on other batch sizes.
+STREAM_TOL = dict(rtol=0, atol=1e-5)
+
+
+@pytest.fixture
+def tiny_front_ends(monkeypatch):
+    """The pipeline's default DINO and depth classes, built tiny; records the
+    keyword arguments the pipeline builds them with."""
+    from tdspa_torch.features import dino as dino_lib
+    from tdspa_torch.features.vit import ViTConfig
+    from tdspa_torch.infer import pipeline as pipeline_lib
+
+    built = {}
+
+    class TinyDino(pipeline_lib.DinoFeatureExtractor):
+        def __init__(self, **kwargs):
+            built["dino"] = kwargs
+            super().__init__(vit_config=ViTConfig(**TINY_DINO), dtype=torch.float32,
+                             **kwargs)
+
+    class TinyDepth(pipeline_lib.VideoDepthEstimator):
+        def __init__(self, **kwargs):
+            built["depth"] = kwargs
+            super().__init__(vit_config=ViTConfig(**TINY_DEPTH), head_cfg=TINY_HEAD,
+                             dtype=torch.float32, frame_chunk=2, **kwargs)
+
+    monkeypatch.setattr(dino_lib, "load_dinov2_params", lambda name, config: None)
+    monkeypatch.setattr(pipeline_lib, "DinoFeatureExtractor", TinyDino)
+    monkeypatch.setattr(pipeline_lib, "VideoDepthEstimator", TinyDepth)
+    return built
+
+
+def _recording_pipeline(**kwargs):
+    """A CPU pipeline with the default tracker (4x4 grid) whose track_chunks
+    keeps the device video the streamed stages saw."""
+    pipe = InferencePipeline(num_output_frames=T, num_query_points=NUM_QUERIES,
+                             num_support_tracks=NUM_SUPPORT, tracking_grid_size=4,
+                             model=tiny_model_3d(T, device="cpu"), device="cpu", **kwargs)
+    captured = {}
+    track_chunks = pipe.track_provider.track_chunks
+
+    def recording(chunks):
+        captured["video"] = torch.cat(chunks, dim=0)
+        return track_chunks(chunks)
+
+    pipe.track_provider.track_chunks = recording
+    return pipe, captured
+
+
+def test_default_front_ends_are_built_lazily_and_streamed(tiny_front_ends):
+    """No providers passed: the port's DINO and depth stages, built with the
+    pipeline's knobs, run per upload chunk (4, 4, 2 frames); their parts
+    concatenated equal one whole-video call; the whole video is not kept."""
+    pipe, captured = _recording_pipeline(
+        upload_chunk_frames=4, residual_dtype=torch.float32, gelu_approximate=True,
+        depth_output_scale=0.5, depth_input_size=28, dino_model="facebook/dinov2-small",
+        vda_encoder="vitb")
+    results = pipe.run_on_frames(_video())
+    assert tiny_front_ends["dino"] == dict(
+        model_name="facebook/dinov2-small", residual_dtype=torch.float32, gelu_approximate=True,
+        device=torch.device("cpu"))
+    assert tiny_front_ends["depth"] == dict(
+        encoder="vitb", residual_dtype=torch.float32, output_scale=0.5, input_size=28,
+        gelu_approximate=True, device=torch.device("cpu"))
+    assert set(results["timings"]) == {"upload_tracking_features", "fused_tail"}
+    assert results["dino_grid"].shape == (T, 2, 2, 768)
+    assert results["depth"].shape == (T, H, W, 1) and bool((results["depth"] >= 0).all())
+    torch.testing.assert_close(results["dino_grid"], pipe.dino_extractor(captured["video"]),
+                               **STREAM_TOL)
+    torch.testing.assert_close(results["depth"], pipe.depth_provider(captured["video"]),
+                               **STREAM_TOL)
+    assert torch.isfinite(results["predictions"].tracks).all()
+    _, video_dev, dino_grid, depth_maps = pipe._streamed_upload_and_tracking(_video())
+    assert video_dev is None and dino_grid is not None and depth_maps is not None
+
+
+@pytest.mark.parametrize("chunk,given_dino", [(3, False), (4, True)],
+                         ids=["chunks_off_the_depth_groups", "dino_passed_in"])
+def test_only_aligned_own_stages_stream(tiny_front_ends, chunk, given_dino):
+    """Depth streams only when the chunk is a multiple of its 2-frame groups
+    (3 is not: it runs once on the whole video); a DINO provider passed in
+    is not streamed and takes the whole device video (``need_full``)."""
+    seen = []
+
+    def dino_provider(video):
+        seen.append(tuple(video.shape))
+        return _dino_grid()
+
+    pipe, captured = _recording_pipeline(
+        upload_chunk_frames=chunk, depth_input_size=28,
+        dino_extractor=dino_provider if given_dino else None)
+    results = pipe.run_on_frames(_video())
+    streamed_depth = chunk % 2 == 0
+    assert ("depth" in results["timings"]) is not streamed_depth
+    assert ("dino_features" in results["timings"]) is given_dino
+    assert seen == ([(T, H, W, 3)] if given_dino else [])
+    torch.testing.assert_close(results["depth"], pipe.depth_provider(captured["video"]),
+                               **STREAM_TOL)
+    if not given_dino:
+        torch.testing.assert_close(results["dino_grid"], pipe.dino_extractor(captured["video"]),
+                                   **STREAM_TOL)
+    _, video_dev, _, _ = pipe._streamed_upload_and_tracking(_video())
+    assert video_dev is not None and video_dev.shape == (T, H, W, 3)
 
 
 def test_host_providers_match_jax(tmp_path):
