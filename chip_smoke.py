@@ -25,7 +25,8 @@ and the script exits non-zero:
 4. pipeline: ``InferencePipeline.run_on_frames`` at full width (150 frames
    of 512x512, 4096 tracks, 2048 support, 512 queries, DINO and depth
    features, bf16 model with fused attention, random weights from a seed)
-   a few times, counting kernel launches (19 per forward); then the same
+   a few times, counting kernel launches (19 attention per forward, 3
+   bilinear per tail); then the same
    pipeline with the plain attention path, same weights and split, and
    their agreement.
 5. lk_kernel: the LK kernel (``tdspa_torch/csrc/lk.cu``) against its plain
@@ -51,9 +52,28 @@ and the script exits non-zero:
    their agreement with the same extractors on plain attention.
 10. pipeline_full: ``InferencePipeline()`` with no front end passed in, on
    the clean scene: DINO and depth streamed per upload chunk; per run 456
-   ViT, 19 tail attention and 4 LK launches; the streamed features equal
+   ViT, 19 tail attention, 3 bilinear and 4 LK launches; the streamed features equal
    one whole-video call of the same extractors; tracking quality as in 7;
    ``save_results`` writes the reference's ``predictions.npz``.
+
+11. quant_matmul_kernel: the dynamic-int8 kernel (``csrc/quant_matmul.cu``)
+   against ``quant_matmul_reference`` at every (M, K, N) of the quantised
+   full-width forward (f32 x, as the pipeline gives it), plus a bf16 x and a
+   ragged M: equal bit for bit; kernel, wrapper, plain and bound times,
+   ``torch._int_mm`` on the pre-quantised operands and a bf16 matmul timed
+   only, as yardsticks.
+12. block_kernel: the fused block (``csrc/block.cu``) against
+   ``block_reference`` at the readout [512,129,1280] (MLP 1536) and
+   decompress [1,128,1152] (MLP 2048) layers, with the port's unfused layer
+   (what ``fused_block=False`` runs) timed beside it.
+13. bilinear_kernel: the bilinear kernel (``csrc/bilinear.cu``) against the
+   plain gather on the tail's DINO grid [150,36,36,768] and depth maps
+   [150,512,512,1] at 4096 tracks: equal bit for bit.
+14. pipeline_quantized and pipeline_fused_block: ``InferencePipeline(
+   quantize=True)`` and ``(fused_block=True)`` with phase 4's providers,
+   seed and weights: per forward 106 int8 + 19 attention launches, and 8
+   block + 11 attention launches; 3 bilinear launches per tail in every
+   pipeline; each against phase 4's bf16 pipeline.
 
 With ``--profile``, one more run of each full-width pipeline's stage (and
 of each feature extractor) under ``torch.profiler`` reports the device's
@@ -85,13 +105,23 @@ from tdspa_torch.features.depth import VideoDepthEstimator
 from tdspa_torch.features.dino import DinoFeatureExtractor
 from tdspa_torch.features.tracks import PyramidalLKTracker, make_query_grid
 from tdspa_torch.infer.pipeline import InferencePipeline, save_results
+from tdspa_torch.core.attention import ParallelTransformerBlock, reset_parameters
 from tdspa_torch.kernels import build
 from tdspa_torch.kernels import lk as lk_kernel
+from tdspa_torch.kernels import quant_matmul as qmm
 from tdspa_torch.kernels.attention import (
     VIT_HEAD,
     attention_reference,
     fused_masked_attention,
     vit_attention,
+)
+from tdspa_torch.kernels.bilinear import bilinear_sample as bilinear_kernel
+from tdspa_torch.kernels.bilinear import bilinear_sample_reference
+from tdspa_torch.kernels.block import (
+    KERNELS_PER_CALL,
+    _operands,
+    block_reference,
+    fused_transformer_block,
 )
 from tdspa_torch.kernels.matcher import cost_patches_multi, cost_patches_reference
 from tdspa_torch.models import TrackAutoEncoder3D
@@ -104,6 +134,7 @@ SEED = 0
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
 # Kernel vs plain version, same bf16 inputs. Both round P to bf16 (the kernel
 # before normalising, the plain version after), each a relative error
 # <= 2**-9 per probability, so |diff| <= 2 * 2**-9 * max|v| ~ 0.018 for the
@@ -126,10 +157,69 @@ FEATURES_RTOL = 5e-2
 # before the bf16 backbone). Relative to the output's range.
 STREAM_RTOL = 1e-2
 
+# int8 kernel vs its plain version: the same quantised values (the same f32
+# amax, scale product, true division and round half to even) and exact
+# integer sums on both sides, then the same two f32 products: bit for bit.
+QUANT_ATOL = 0.0
+# Fused block vs its plain version (same bf16 operands and rounding points):
+# the kernel sums its products in another order and uses the card's rsqrtf,
+# expf and tanhf, so a bf16 rounding of ln1, q, k, v, P, att, ln2 or the GELU
+# output can land one bf16 step (2^-8 relative) away; one such step moves an
+# O(1) output by about 2^-8 times a weight row's norm (< 0.1 here), so the
+# outputs stay within 2e-2, the attention kernels' tolerance.
+BLOCK_ATOL = 2e-2
+# The bilinear kernel does the plain gather's f32 products and sums in its
+# order without contraction (--fmad=false): bit for bit.
+BILINEAR_ATOL = 0.0
+# Quantised pipeline vs the bf16 one (same weights and split): int8 rounding
+# of every projection's input and weight (<= 1/254 of a row's or column's
+# max) through 15 layers; held as JAX holds its quantised forward against
+# the unquantised one (tests/unit/test_quant.py): relative L2 on the tracks
+# below 5 % and visibility decisions agreeing on more than 97 % of points.
+QUANT_TRACKS_REL_L2, QUANT_VIS_AGREE = 5e-2, 0.97
+# Fused-block pipeline vs the bf16 one: the block rounds its input and every
+# operand to bf16 and takes other rounding points than the unfused layers in
+# 8 of the 15 layers; relative to the output's range, as PIPELINE_RTOL (JAX
+# holds its block stack to 5e-2 abs of O(1) outputs, tests/unit/
+# test_block_kernel.py).
+FUSED_BLOCK_RTOL = 5e-2
+
 NUM_FRAMES, HEIGHT, WIDTH, GRID = 150, 512, 512, 64
 DINO_GRID = (36, 36, 768)  # the extractor's grid of a 512x512 frame (resized to 504 = 36 x 14)
 RUNS = 3
 FORWARD_LAUNCHES = 3 + 4 + 4 + 4 + 4  # encoder, latent self, latent cross, decompress, readout
+TAIL_BILINEAR_LAUNCHES = 3  # DINO features, the 2D->3D lift and the depth features
+# The int8 products of the quantised forward (batch 1, 2048 support tracks
+# of 150 frames + the readout token, 128 latents, 512 queries of 128 latents
+# + the query token): (name, M, K, N, launches per forward, x dtype).
+QUANT_SHAPES = [
+    ("input_qkv", 2048 * 151, 384, 768, 3 * 3, torch.float32),
+    ("input_out", 2048 * 151, 768, 384, 3, torch.float32),
+    ("input_mlp_in", 2048 * 151, 384, 1536, 3, torch.float32),
+    ("input_mlp_out", 2048 * 151, 1536, 384, 3, torch.float32),
+    ("latents_q_kv", 128, 512, 768, 4 * 4, torch.float32),  # self q, k, v and cross q
+    ("latents_cross_kv", 2048, 384, 768, 4 * 2, torch.float32),
+    ("latents_out", 128, 768, 512, 4 * 2, torch.float32),  # self and cross
+    ("latents_mlp_in", 128, 512, 2048, 4, torch.float32),
+    ("latents_mlp_out", 128, 2048, 512, 4, torch.float32),
+    ("decompress_qkv", 128, 1152, 768, 4 * 3, torch.float32),
+    ("decompress_out", 128, 768, 1152, 4, torch.float32),
+    ("decompress_mlp_in", 128, 1152, 2048, 4, torch.float32),
+    ("decompress_mlp_out", 128, 2048, 1152, 4, torch.float32),
+    ("readout_qkv", 512 * 129, 1280, 768, 4 * 3, torch.float32),
+    ("readout_out", 512 * 129, 768, 1280, 4, torch.float32),
+    ("readout_mlp_in", 512 * 129, 1280, 1536, 4, torch.float32),
+    ("readout_mlp_out", 512 * 129, 1536, 1280, 4, torch.float32),
+    ("readout_qkv_bf16_x", 512 * 129, 1280, 768, 0, torch.bfloat16),  # residual_dtype=bf16
+    ("ragged_m", 1111, 1152, 2048, 0, torch.bfloat16),
+]
+QUANT_LAUNCHES = sum(shape[4] for shape in QUANT_SHAPES)  # 106
+# The fused block's layers (name, items, S, C, MLP, launches per forward);
+# 8 heads of 96. The other 11 attentions stay on the attention kernel.
+BLOCK_HEADS, BLOCK_QKV = 8, 768
+BLOCK_SHAPES = [("readout", 512, 129, 1280, 1536, 4), ("decompress", 1, 128, 1152, 2048, 4)]
+BLOCK_LAUNCHES = sum(shape[5] for shape in BLOCK_SHAPES)  # 8
+FUSED_BLOCK_ATTENTION_LAUNCHES = 3 + 4 + 4  # encoder, latent self, latent cross
 
 # (name, B, S, K, H, D, key-masked, launches per forward)
 MAIN_PATH_SHAPES = [
@@ -440,11 +530,13 @@ def phase_pipeline() -> dict:
     pipe = pipeline()
     params = sum(p.numel() for p in pipe.model.parameters())
     fused_masked_attention.launches = 0
+    bilinear_kernel.launches = 0
     tails, results = [], None
     for _ in range(RUNS):
         results = pipe.run_on_frames(video)
         tails.append(results["timings"]["fused_tail"] * 1e3)
     launches = fused_masked_attention.launches
+    bilinear_launches = bilinear_kernel.launches
     preds = results["predictions"]
     shapes = {
         "tracks": list(preds.tracks.shape),
@@ -455,7 +547,8 @@ def phase_pipeline() -> dict:
     }
     finite = bool(torch.isfinite(preds.tracks).all() and torch.isfinite(preds.visible_logits).all())
     emit("pipeline", params=params, runs=RUNS, launches=launches,
-         launches_per_forward=launches / RUNS, shapes=shapes, finite=finite,
+         launches_per_forward=launches / RUNS, bilinear_launches=bilinear_launches,
+         shapes=shapes, finite=finite,
          fused_tail_ms=tails, fused_tail_median_ms=statistics.median(tails[1:]),
          timings_ms={k: v * 1e3 for k, v in results["timings"].items()},
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -466,10 +559,11 @@ def phase_pipeline() -> dict:
     }
     if shapes != expected or not finite:
         raise AssertionError(f"pipeline output wrong: {shapes} finite={finite}")
-    if launches != FORWARD_LAUNCHES * RUNS:
+    if launches != FORWARD_LAUNCHES * RUNS or bilinear_launches != TAIL_BILINEAR_LAUNCHES * RUNS:
         raise AssertionError(
-            f"attention kernel launched {launches} times in {RUNS} forwards, "
-            f"expected {FORWARD_LAUNCHES * RUNS}"
+            f"attention kernel launched {launches} times and bilinear kernel "
+            f"{bilinear_launches} times in {RUNS} forwards, expected "
+            f"{FORWARD_LAUNCHES * RUNS} and {TAIL_BILINEAR_LAUNCHES * RUNS}"
         )
 
     # Same weights, same split, plain attention (the kernel is off).
@@ -500,7 +594,9 @@ def phase_pipeline() -> dict:
     bad = {k: v for k, v in agreement.items() if not v["rel_err"] <= PIPELINE_RTOL}
     if bad:
         raise AssertionError(f"kernel and plain pipelines disagree: {bad}")
-    return {"launches": launches, "pipeline": pipe, "video": video}
+    return {"launches": launches, "bilinear_launches": bilinear_launches, "pipeline": pipe,
+            "video": video, "providers": providers, "predictions": preds,
+            "fused_tail_median_ms": statistics.median(tails[1:])}
 
 
 def timed_once(fn):
@@ -844,7 +940,8 @@ def phase_pipeline_full(scene) -> dict:
 
     tracker.track_chunks = recording
     counters = {"vit_attention": vit_attention, "attention": fused_masked_attention,
-                "lk": lk_kernel.track_video_lk_kernel, "matcher": cost_patches_multi}
+                "bilinear": bilinear_kernel, "lk": lk_kernel.track_video_lk_kernel,
+                "matcher": cost_patches_multi}
     for fn in counters.values():
         fn.launches = 0
     timings = []
@@ -853,7 +950,7 @@ def phase_pipeline_full(scene) -> dict:
         timings.append({k: v * 1e3 for k, v in results["timings"].items()})
     launches = {name: fn.launches for name, fn in counters.items()}
     per_run = {"vit_attention": 2 * VIT_LAUNCHES, "attention": FORWARD_LAUNCHES,
-               "lk": CHUNK_LAUNCHES, "matcher": 0}
+               "bilinear": TAIL_BILINEAR_LAUNCHES, "lk": CHUNK_LAUNCHES, "matcher": 0}
     preds = results["predictions"]
     shapes = {"dino_grid": list(results["dino_grid"].shape), "depth": list(results["depth"].shape),
               "tracks": list(preds.tracks.shape), "visible_logits": list(preds.visible_logits.shape)}
@@ -897,9 +994,240 @@ def phase_pipeline_full(scene) -> dict:
     return {"pipeline": pipe, "launches": launches, "timings": timings}
 
 
+def phase_quant_kernel() -> dict:
+    """The int8 kernel against ``quant_matmul_reference`` at the quantised
+    forward's shapes; returns one forward's totals."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    totals = new_totals()
+    for name, m, k, n, per_forward, x_dtype in QUANT_SHAPES:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(x_dtype)
+        w = torch.randn((k, n), generator=gen, device="cuda") * (1.0 / math.sqrt(k))
+        got = qmm.quant_matmul(x, w)
+        torch.cuda.synchronize()
+        want = qmm.quant_matmul_reference(x, w)
+        err = (got - want).abs().max().item()
+        finite = bool(torch.isfinite(got).all().item())
+        del got, want
+        wq, ws = qmm.quantize_weight(w)
+        ms = cuda_ms(lambda: qmm.launch(x, wq, ws), iters=10)
+        wrapper_ms = cuda_ms(lambda: qmm.quant_matmul(x, w), iters=10)
+        plain_ms = cuda_ms(lambda: qmm.quant_matmul_reference(x, w), iters=3)
+        xq, _ = qmm.dynamic_int8(x.float(), -1)
+        int_mm_ms = cuda_ms(lambda: torch._int_mm(xq, wq.t()), iters=10)
+        wb, xb = w.to(torch.bfloat16), x.to(torch.bfloat16)
+        bf16_ms = cuda_ms(lambda: xb @ wb, iters=10)
+        x_bytes = x.element_size()
+        bytes_ms = (m * k * x_bytes + k * n * 4 + m * n * 4) / PEAK_BYTES_PER_S * 1e3
+        flops_ms = 2.0 * m * n * k / PEAK_INT8_OPS * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        row = dict(shape=name, M=m, K=k, N=n, x_dtype=str(x_dtype).removeprefix("torch."),
+                   per_forward=per_forward, max_abs_err=err, atol=QUANT_ATOL, finite=finite,
+                   ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, library_ms=int_mm_ms,
+                   library="torch._int_mm on the pre-quantised operands",
+                   bf16_matmul_ms=bf16_ms, bound_ms=bound_ms,
+                   bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+                   roofline_share=bound_ms / ms)
+        emit("quant_matmul_kernel", **row)
+        if not finite or err > QUANT_ATOL:
+            raise AssertionError(f"int8 kernel disagrees with its plain version: {row}")
+        if per_forward:
+            totals["max_abs_err"] = max(totals["max_abs_err"], err)
+            for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", int_mm_ms),
+                               ("bytes_ms", bytes_ms), ("flops_ms", flops_ms)):
+                totals[key] += per_forward * value
+        del x, w, wq, ws, xq, wb, xb
+        torch.cuda.empty_cache()
+    return totals
+
+
+def block_bound(items, seq, width, mlp, heads, head_dim, nbytes) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one block layer: x in and out once (f32)
+    and the bf16 operands once; the bf16 products (Q/K/V, Q.K^T, P.V, the
+    out-projection and the two MLP products)."""
+    rows, hd = items * seq, heads * head_dim
+    flops = (2.0 * rows * width * 3 * hd + 4.0 * items * heads * seq * seq * head_dim
+             + 2.0 * rows * hd * width + 4.0 * rows * width * mlp)
+    return (2 * rows * width * 4 + nbytes) / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+
+
+def phase_block_kernel() -> dict:
+    """The fused block against ``block_reference`` at the readout and
+    decompress layers (seeded weights, norm scales and biases perturbed so
+    that none is trivial); the unfused layer timed beside it."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    totals = new_totals()
+    totals["unfused_ms"] = 0.0
+    for name, items, seq, width, mlp, per_forward in BLOCK_SHAPES:
+        block = ParallelTransformerBlock(width, mlp, BLOCK_HEADS, BLOCK_QKV, dtype=torch.bfloat16,
+                                         use_fused=True, fused_block=True, device="cuda")
+        reset_parameters(block, gen)
+        with torch.no_grad():
+            for pname, param in block.named_parameters():
+                if param.dim() == 1:
+                    param.add_(0.1 * torch.randn(param.shape, generator=gen, device="cuda"))
+        x = torch.randn((items, seq, width), generator=gen, device="cuda")
+        with torch.inference_mode():
+            ops = _operands(block)
+            got = fused_transformer_block(x, block, BLOCK_HEADS)
+            torch.cuda.synchronize()
+            want = block_reference(x, ops, BLOCK_HEADS)
+            diff = (got - want).abs()
+            err, mean_err = diff.max().item(), diff.mean().item()
+            finite = bool(torch.isfinite(got).all().item())
+            scale = want.abs().max().item()
+            del got, want, diff
+            ms = cuda_ms(lambda: fused_transformer_block(x, block, BLOCK_HEADS), iters=5)
+            plain_ms = cuda_ms(lambda: block_reference(x, ops, BLOCK_HEADS), iters=2)
+            block.fused_block = False
+            unfused_ms = cuda_ms(lambda: block(x), iters=5)
+            block.fused_block = True
+        nbytes = sum(t.numel() * t.element_size() for t in ops.values())
+        bytes_ms, flops_ms = block_bound(items, seq, width, mlp, BLOCK_HEADS,
+                                         BLOCK_QKV // BLOCK_HEADS, nbytes)
+        bound_ms = max(bytes_ms, flops_ms)
+        row = dict(shape=name, x=[items, seq, width], mlp=mlp, heads=BLOCK_HEADS,
+                   head_dim=BLOCK_QKV // BLOCK_HEADS, per_forward=per_forward,
+                   cuda_kernels_per_call=KERNELS_PER_CALL, max_abs_err=err, mean_abs_err=mean_err,
+                   ref_max_abs=scale, atol=BLOCK_ATOL, finite=finite, ms=ms, plain_ms=plain_ms,
+                   unfused_ms=unfused_ms, library_ms=None,
+                   library="no single PyTorch call computes a whole block",
+                   bound_ms=bound_ms, bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+                   roofline_share=bound_ms / ms)
+        emit("block_kernel", **row)
+        if not finite or err > BLOCK_ATOL:
+            raise AssertionError(f"block kernel disagrees with its plain version: {row}")
+        totals["max_abs_err"] = max(totals["max_abs_err"], err)
+        for key, value in (("ms", ms), ("plain_ms", plain_ms), ("unfused_ms", unfused_ms),
+                           ("bytes_ms", bytes_ms), ("flops_ms", flops_ms)):
+            totals[key] += per_forward * value
+        del block, x, ops
+        torch.cuda.empty_cache()
+    totals["library_ms"] = None
+    return totals
+
+
+def phase_bilinear_kernel(providers) -> dict:
+    """The bilinear kernel against the plain gather on the tail's DINO grid
+    and depth maps at the seeded tracks; returns one tail's totals (one DINO
+    and two depth samplings)."""
+    tracks = providers.tracks.contiguous()
+    dino_coords = (tracks * torch.tensor([DINO_GRID[1] / WIDTH, DINO_GRID[0] / HEIGHT],
+                                         device="cuda")).contiguous()
+    cases = [("dino", providers.dino, dino_coords, 1), ("depth", providers.depth, tracks, 2),
+             ("dino_bf16_grid", providers.dino.to(torch.bfloat16), dino_coords, 0)]
+    totals = new_totals()
+    out_dtype = torch.float32  # the tail keeps the XLA tail's f32 products
+    for name, grid, coords, per_tail in cases:
+        got = bilinear_kernel(grid, coords, out_dtype)
+        torch.cuda.synchronize()
+        want = bilinear_sample_reference(grid, coords, out_dtype)
+        err = (got - want).abs().max().item()
+        finite = bool(torch.isfinite(got).all().item())
+        del got, want
+        ms = cuda_ms(lambda: bilinear_kernel(grid, coords, out_dtype), iters=10)
+        plain_ms = cuda_ms(lambda: bilinear_sample_reference(grid, coords, out_dtype), iters=3)
+        frames, height, width, channels = grid.shape
+        n = coords.shape[0]
+        # The grid cells this run's points touch (four corners, clamped).
+        x0f, y0f = coords[..., 0].floor().long(), coords[..., 1].floor().long()
+        t_idx = torch.arange(frames, device="cuda")[None, :]
+        cells = torch.cat([
+            ((t_idx * height + yy.clamp(0, height - 1)) * width
+             + xx.clamp(0, width - 1)).reshape(-1)
+            for yy in (y0f, y0f + 1) for xx in (x0f, x0f + 1)
+        ]).unique().numel()
+        nbytes = (cells * channels * grid.element_size() + coords.numel() * 4
+                  + n * frames * channels * 4)
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        flops_ms = 11.0 * n * frames * channels / PEAK_F32_FLOPS * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        row = dict(case=name, grid=list(grid.shape),
+                   grid_dtype=str(grid.dtype).removeprefix("torch."),
+                   points=n, per_tail=per_tail, cells_touched=cells, max_abs_err=err,
+                   atol=BILINEAR_ATOL, finite=finite, ms=ms, plain_ms=plain_ms, library_ms=None,
+                   library="no single PyTorch call has the reference's corner rule",
+                   bound_ms=bound_ms, bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+                   roofline_share=bound_ms / ms)
+        emit("bilinear_kernel", **row)
+        if not finite or err > BILINEAR_ATOL:
+            raise AssertionError(f"bilinear kernel disagrees with the plain gather: {row}")
+        if per_tail:
+            totals["max_abs_err"] = max(totals["max_abs_err"], err)
+            for key, value in (("ms", ms), ("plain_ms", plain_ms), ("bytes_ms", bytes_ms),
+                               ("flops_ms", flops_ms)):
+                totals[key] += per_tail * value
+    totals["library_ms"] = None
+    return totals
+
+
+def phase_serving(path, knob: str, profile: bool = False) -> dict:
+    """``InferencePipeline(**{knob: True})`` with phase ``pipeline``'s seeded
+    providers, video, seed and weights: launches per forward, output, and
+    agreement with that phase's bf16 pipeline."""
+    providers = path["providers"]
+    pipe = InferencePipeline(
+        num_output_frames=NUM_FRAMES, use_dino=True, use_depth=True,
+        track_provider=providers.track, dino_extractor=providers.dino_grid,
+        depth_provider=providers.depth_maps, seed=SEED, device="cuda", **{knob: True},
+    )
+    pipe.model.load_state_dict(path["pipeline"].model.state_dict())
+    counters = {"attention": fused_masked_attention, "quant_matmul": qmm.quant_matmul,
+                "block": fused_transformer_block, "bilinear": bilinear_kernel}
+    for fn in counters.values():
+        fn.launches = 0
+    tails = []
+    for _ in range(RUNS):
+        results = pipe.run_on_frames(path["video"])
+        tails.append(results["timings"]["fused_tail"] * 1e3)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    per_forward = {
+        "quantize": {"attention": FORWARD_LAUNCHES, "quant_matmul": QUANT_LAUNCHES, "block": 0,
+                     "bilinear": TAIL_BILINEAR_LAUNCHES},
+        "fused_block": {"attention": FUSED_BLOCK_ATTENTION_LAUNCHES, "quant_matmul": 0,
+                        "block": BLOCK_LAUNCHES, "bilinear": TAIL_BILINEAR_LAUNCHES},
+    }[knob]
+    preds, ref = results["predictions"], path["predictions"]
+    finite = bool(torch.isfinite(preds.tracks).all() and torch.isfinite(preds.visible_logits).all())
+    agreement = {name: _rel_err(getattr(preds, name), getattr(ref, name))
+                 for name in ("tracks", "visible_logits")}
+    a, b = preds.tracks.float(), ref.tracks.float()
+    tracks_rel_l2 = ((a - b).norm() / b.norm()).item()
+    vis_agree = ((preds.visible_logits > 0) == (ref.visible_logits > 0)).float().mean().item()
+    phase = f"pipeline_{'quantized' if knob == 'quantize' else knob}"
+    emit(phase, runs=RUNS, launches=launches,
+         launches_per_forward={k: v / RUNS for k, v in launches.items()},
+         expected_per_forward=per_forward, shape=list(preds.tracks.shape), finite=finite,
+         fused_tail_ms=tails, fused_tail_median_ms=statistics.median(tails[1:]),
+         bf16_fused_tail_median_ms=path["fused_tail_median_ms"], vs_bf16_pipeline=agreement,
+         tracks_rel_l2=tracks_rel_l2, visibility_agreement=vis_agree,
+         limits=({"tracks_rel_l2": QUANT_TRACKS_REL_L2, "visibility_agreement": QUANT_VIS_AGREE}
+                 if knob == "quantize" else {"rel_err": FUSED_BLOCK_RTOL}),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if launches != {k: v * RUNS for k, v in per_forward.items()}:
+        raise AssertionError(f"{phase}: launches {launches} in {RUNS} runs; expected "
+                             f"{per_forward} per forward")
+    if list(preds.tracks.shape) != [1, 512, NUM_FRAMES, 3] or not finite:
+        raise AssertionError(f"{phase}: output {list(preds.tracks.shape)}, finite={finite}")
+    if knob == "quantize":
+        ok = tracks_rel_l2 < QUANT_TRACKS_REL_L2 and vis_agree > QUANT_VIS_AGREE
+    else:
+        ok = all(v["rel_err"] <= FUSED_BLOCK_RTOL for v in agreement.values())
+    if not ok:
+        raise AssertionError(f"{phase} disagrees with the bf16 pipeline: {agreement}, "
+                             f"rel L2 {tracks_rel_l2}, visibility agreement {vis_agree}")
+    if profile:
+        profile_pipeline(pipe, path["video"], "fused_tail")
+    del pipe, results
+    torch.cuda.empty_cache()
+    return {"launches": launches, "fused_tail_median_ms": statistics.median(tails[1:])}
+
+
 KERNEL_CLASSES = (  # (class, substrings of a device kernel's name), first match wins
     ("vit_attention", ("vit_attention_kernel",)),
     ("attention", ("attention_fwd_kernel",)),
+    ("quant_matmul", ("quant_matmul_kernel",)),
+    ("block", ("layernorm_kernel", "gemm_kernel<", "attention_kernel<")),
+    ("bilinear", ("bilinear_kernel",)),
     ("lk", ("lk_track_kernel",)),
     ("matcher_costs", ("cost_patches_kernel",)),
     ("conv", ("conv", "implicit", "winograd", "cudnn", "fprop", "dgrad")),
@@ -955,10 +1283,16 @@ def main(argv: list[str]) -> int:
     phase_build()
     totals = phase_kernel()
     vit_totals = phase_vit_kernel()
+    quant_totals = phase_quant_kernel()
+    block_totals = phase_block_kernel()
     path = phase_pipeline()
     if "--profile" in argv:
         profile_pipeline(path["pipeline"], path["video"], "fused_tail")
-    del path["pipeline"]
+    bilinear_totals = phase_bilinear_kernel(path["providers"])
+    quantized = phase_serving(path, "quantize", profile="--profile" in argv)
+    fused_block = phase_serving(path, "fused_block", profile="--profile" in argv)
+    del path["pipeline"], path["providers"]
+    torch.cuda.empty_cache()
     scenes = make_scenes()
     lk = phase_lk_kernel(scenes["clean"])
     matcher = phase_matcher_kernel(scenes["clean"], lk.pop("tracks"))
@@ -1037,6 +1371,57 @@ def main(argv: list[str]) -> int:
         "per": (f"one 150-frame video: {VIT_LAUNCHES} launches at (8,1297,12,64) for DINO and "
                 f"{VIT_LAUNCHES} at (8,1370,12,64) for depth, f32 output; launches counted over "
                 f"{RUNS} full-pipeline runs"),
+    })
+    kernels.append({
+        "name": "quant_matmul",
+        "route": "cuda",
+        "source": "tdspa_torch/csrc/quant_matmul.cu",
+        "replaces": "tdspa/kernels/quant_matmul.py:106",
+        "launches": quantized["launches"]["quant_matmul"],
+        "max_abs_err": quant_totals["max_abs_err"],
+        "ms": quant_totals["ms"],
+        "plain_ms": quant_totals["plain_ms"],
+        "bound_ms": max(quant_totals["bytes_ms"], quant_totals["flops_ms"]),
+        "bound_by": "bytes" if quant_totals["bytes_ms"] >= quant_totals["flops_ms"]
+        else "operations",
+        "library_ms": quant_totals["library_ms"],
+        "library": "torch._int_mm on the pre-quantised operands",
+        "per": (f"one quantised forward: the {QUANT_LAUNCHES} launches at their shapes, f32 x; "
+                f"launches counted over {RUNS} pipeline_quantized runs"),
+    })
+    kernels.append({
+        "name": "fused_transformer_block",
+        "route": "cuda",
+        "source": "tdspa_torch/csrc/block.cu",
+        "replaces": "tdspa/kernels/block.py:196",
+        "launches": fused_block["launches"]["block"],
+        "max_abs_err": block_totals["max_abs_err"],
+        "ms": block_totals["ms"],
+        "plain_ms": block_totals["plain_ms"],
+        "bound_ms": max(block_totals["bytes_ms"], block_totals["flops_ms"]),
+        "bound_by": "bytes" if block_totals["bytes_ms"] >= block_totals["flops_ms"]
+        else "operations",
+        "library_ms": None,
+        "unfused_ms": block_totals["unfused_ms"],
+        "cuda_kernels_per_call": KERNELS_PER_CALL,
+        "per": (f"one fused-block forward: {BLOCK_LAUNCHES} layers (4 readout, 4 decompress), "
+                f"f32 residual; launches counted over {RUNS} pipeline_fused_block runs"),
+    })
+    kernels.append({
+        "name": "bilinear_sample",
+        "route": "cuda",
+        "source": "tdspa_torch/csrc/bilinear.cu",
+        "replaces": "tdspa/kernels/bilinear.py:85",
+        "launches": path["bilinear_launches"],
+        "max_abs_err": bilinear_totals["max_abs_err"],
+        "ms": bilinear_totals["ms"],
+        "plain_ms": bilinear_totals["plain_ms"],
+        "bound_ms": max(bilinear_totals["bytes_ms"], bilinear_totals["flops_ms"]),
+        "bound_by": "bytes" if bilinear_totals["bytes_ms"] >= bilinear_totals["flops_ms"]
+        else "operations",
+        "library_ms": None,
+        "per": (f"one fused_tail: {TAIL_BILINEAR_LAUNCHES} launches (the DINO grid once, the "
+                f"depth maps twice), f32 output; launches counted over {RUNS} pipeline runs"),
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

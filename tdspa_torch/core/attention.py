@@ -15,6 +15,12 @@ Parameter names and layouts are the flax tree's (``DenseGeneral`` kernels
 Numerics follow flax: a layer with ``dtype`` casts both its input and its
 f32 parameters to ``dtype``; norms take f32 statistics with eps 1e-6 and
 return ``dtype``; ``gelu`` is the tanh approximation.
+
+Two inference knobs, as in the JAX package: ``quantize`` swaps the
+projections and the MLP for the dynamic-int8 layers of ``core/quant.py``
+(same parameters); ``fused_block`` runs an unmasked self-attention block
+through the fused block kernel (``kernels/block.py``) when the kernel takes
+its shapes, and never under ``quantize``.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from tdspa_torch.kernels.attention import fused_masked_attention
+from tdspa_torch.kernels.block import fused_transformer_block, kernel_takes
 
 _FILL = torch.finfo(torch.float32).min
 NORM_EPS = 1e-6  # flax LayerNorm / RMSNorm default
@@ -156,7 +163,7 @@ class QKNormAttention(nn.Module):
 
     def __init__(self, q_width: int, kv_width: int, num_heads: int, qk_size: int,
                  v_size: int | None = None, dtype=torch.float32, use_fused: bool = False,
-                 residual_dtype=torch.float32, device="cpu"):
+                 residual_dtype=torch.float32, quantize: bool = False, device="cpu"):
         super().__init__()
         v_size = qk_size if v_size is None else v_size
         if qk_size % num_heads:
@@ -165,12 +172,20 @@ class QKNormAttention(nn.Module):
             raise ValueError(f"{num_heads=} must divide {v_size=}.")
         head_qk, head_v = qk_size // num_heads, v_size // num_heads
         self.dtype, self.use_fused, self.residual_dtype = dtype, use_fused, residual_dtype
-        self.dense_query = DenseGeneral((q_width,), (num_heads, head_qk), False, dtype, device)
-        self.dense_key = DenseGeneral((kv_width,), (num_heads, head_qk), False, dtype, device)
+        if quantize:
+            from tdspa_torch.core.quant import QuantDenseGeneral
+
+            def dense(i, o, bias):
+                return QuantDenseGeneral(i, o, bias, device)
+        else:
+            def dense(i, o, bias):
+                return DenseGeneral(i, o, bias, dtype, device)
+        self.dense_query = dense((q_width,), (num_heads, head_qk), False)
+        self.dense_key = dense((kv_width,), (num_heads, head_qk), False)
         self.norm_query = RMSNorm(head_qk, dtype, device)
         self.norm_key = RMSNorm(head_qk, dtype, device)
-        self.dense_value = DenseGeneral((kv_width,), (num_heads, head_v), False, dtype, device)
-        self.dense_out = DenseGeneral((num_heads, head_v), (q_width,), True, dtype, device)
+        self.dense_value = dense((kv_width,), (num_heads, head_v), False)
+        self.dense_out = dense((num_heads, head_v), (q_width,), True)
 
     def forward(self, inputs_q, inputs_kv, mask=None):
         query = self.norm_query(self.dense_query(inputs_q))
@@ -183,24 +198,50 @@ class QKNormAttention(nn.Module):
         return self.dense_out(x).to(self.residual_dtype)
 
 
+def _fused_block_applicable(block, queries, inputs_kv, qq_mask, qk_mask) -> bool:
+    """Fused-block path: self-attention only, no masks, not quantised, and
+    shapes the block kernel takes (its stated limits stand in for the JAX
+    gate's VMEM-fit test). The same decision on every device: the CPU runs
+    the kernel's plain version."""
+    if inputs_kv is not None or qq_mask is not None or qk_mask is not None or block.quantize:
+        return False
+    return math.prod(queries.shape[:-2]) > 0 and kernel_takes(
+        queries.shape[-2], queries.shape[-1], block.num_heads, block.head_dim, block.mlp_size
+    )
+
+
 class ParallelTransformerBlock(nn.Module):
     """Pre-LN block with parallel self- + cross-attention into one residual."""
 
     def __init__(self, width: int, mlp_size: int, num_heads: int, qkv_size: int,
                  kv_width: int | None = None, dtype=torch.float32, use_fused: bool = False,
-                 residual_dtype=torch.float32, device="cpu"):
+                 residual_dtype=torch.float32, quantize: bool = False,
+                 fused_block: bool = False, device="cpu"):
         super().__init__()
         self.residual_dtype = residual_dtype
+        self.num_heads, self.head_dim, self.mlp_size = num_heads, qkv_size // num_heads, mlp_size
+        self.quantize, self.fused_block = quantize, fused_block
         attn = dict(num_heads=num_heads, qk_size=qkv_size, dtype=dtype, use_fused=use_fused,
-                    residual_dtype=residual_dtype, device=device)
+                    residual_dtype=residual_dtype, quantize=quantize, device=device)
         self.norm_q = LayerNorm(width, residual_dtype, device)
         self.self_att = QKNormAttention(width, width, **attn)
         self.cross_att = QKNormAttention(width, kv_width, **attn) if kv_width else None
         self.norm_attn = LayerNorm(width, residual_dtype, device)
-        self.MLP_in = Dense(width, mlp_size, dtype, device)
-        self.MLP_out = Dense(mlp_size, width, dtype, device)
+        if quantize:
+            from tdspa_torch.core.quant import QuantDense
+
+            self.MLP_in = QuantDense(width, mlp_size, device)
+            self.MLP_out = QuantDense(mlp_size, width, device)
+        else:
+            self.MLP_in = Dense(width, mlp_size, dtype, device)
+            self.MLP_out = Dense(mlp_size, width, dtype, device)
 
     def forward(self, queries, inputs_kv=None, qq_mask=None, qk_mask=None):
+        if self.fused_block and _fused_block_applicable(
+            self, queries, inputs_kv, qq_mask, qk_mask
+        ):
+            return fused_transformer_block(queries, self, self.num_heads,
+                                           out_dtype=self.residual_dtype)
         normed_queries = self.norm_q(queries)
         attn_out = queries.to(self.residual_dtype) + self.self_att(
             normed_queries, normed_queries, qq_mask
@@ -221,13 +262,15 @@ class TransformerStack(nn.Module):
 
     def __init__(self, width: int, qkv_size: int, num_heads: int, mlp_size: int,
                  num_layers: int, kv_width: int | None = None, dtype=torch.float32,
-                 use_fused: bool = False, residual_dtype=torch.float32, device="cpu"):
+                 use_fused: bool = False, residual_dtype=torch.float32,
+                 quantize: bool = False, fused_block: bool = False, device="cpu"):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer_{i}", ParallelTransformerBlock(
                 width, mlp_size, num_heads, qkv_size, kv_width=kv_width, dtype=dtype,
-                use_fused=use_fused, residual_dtype=residual_dtype, device=device,
+                use_fused=use_fused, residual_dtype=residual_dtype, quantize=quantize,
+                fused_block=fused_block, device=device,
             ))
         self.norm_encoder = LayerNorm(width, residual_dtype, device)
 

@@ -14,7 +14,10 @@ whole device video. Everything after the front ends is ``fused_tail``:
 2D->3D lifting, bilinear feature sampling, the support/query split and the
 ``TrackAutoEncoder3D`` forward, all on the pipeline's device. With
 ``dtype=bfloat16`` (the default) the model's attention runs in the fused
-CUDA kernel (``tdspa_torch/csrc/attention.cu``).
+CUDA kernel (``tdspa_torch/csrc/attention.cu``) and the tail's three
+bilinear samplings in ``csrc/bilinear.cu``. Two serving configurations of
+the model, as in JAX: ``quantize=True`` (int8 projections,
+``csrc/quant_matmul.cu``) and ``fused_block=True`` (``csrc/block.cu``).
 
 Output schema (``predictions.npz`` + ``video_info.txt``) is the JAX
 package's.
@@ -116,11 +119,13 @@ class InferencePipeline:
         upload_chunk_frames: int = 40,
         upload_yuv420: bool = True,
         projection_policy: str = "error",
+        quantize: bool = False,
         residual_dtype=None,
         depth_output_scale: float = 1.0,
         depth_input_size: int = 518,
         gelu_approximate: bool = False,
         tracking_input_scale: float = 1.0,
+        fused_block: bool = False,
         tail_artifact: str | None = None,
         device="cuda",
     ):
@@ -165,7 +170,13 @@ class InferencePipeline:
             # The fused kernel computes in bf16: engage it only when bf16
             # compute was asked for (and only on CUDA tensors).
             fused_attention=(dtype == torch.bfloat16),
+            # Dynamic int8 projections and MLPs (the same parameters):
+            # kernel csrc/quant_matmul.cu. Inference knob, off by default.
+            quantize=quantize,
             residual_dtype=self.residual_dtype,
+            # The decompress and readout stacks' blocks through the fused
+            # block kernel (csrc/block.cu); not under quantize.
+            fused_block=fused_block,
             device=self.device,
             seed=42,
         )

@@ -1,0 +1,113 @@
+"""Bilinear sampling of per-frame grids: CUDA kernel wrapper + its plain version.
+
+Replaces the TPU kernel ``tdspa/kernels/bilinear.py::bilinear_sample_pallas``
+(body ``_bilinear_frame_kernel``): a grid [T, H, W, C] sampled at [N, T, 2]
+(x, y) positions, four corners per point, interpolation weights from the
+unclamped floor and each corner clamped to the grid on its own (the
+reference rule: points outside the grid take edge values with out-of-range
+weights). ``tdspa_torch/csrc/bilinear.cu`` computes the plain gather's f32
+arithmetic in its order and without contraction, so the two agree bit for
+bit.
+
+``bilinear_sample`` launches the kernel for CUDA tensors and runs
+``bilinear_sample_reference`` for CPU tensors; it never falls back from one
+to the other. ``bilinear_sample.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from tdspa_torch.kernels import build
+
+
+def bilinear_sample_reference(grid, coords, out_dtype=None):
+    """Plain gather: grid [T, H, W, C] at coords [N, T, 2] -> [N, T, C].
+
+    The products and sums are f32 for an f32 or bf16 grid (torch's type
+    promotion with the f32 weights), then cast to ``out_dtype`` (the
+    promoted dtype when None).
+    """
+    height, width = grid.shape[1], grid.shape[2]
+    x, y = coords[..., 0], coords[..., 1]
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    wx = (x - x0f)[..., None]
+    wy = (y - y0f)[..., None]
+    xi, yi = x0f.long(), y0f.long()
+    x0, x1 = xi.clamp(0, width - 1), (xi + 1).clamp(0, width - 1)
+    y0, y1 = yi.clamp(0, height - 1), (yi + 1).clamp(0, height - 1)
+
+    t_idx = torch.arange(grid.shape[0], device=grid.device)[None, :]  # [1 T]
+    g00 = grid[t_idx, y0, x0]
+    g01 = grid[t_idx, y0, x1]
+    g10 = grid[t_idx, y1, x0]
+    g11 = grid[t_idx, y1, x1]
+    out = (
+        g00 * (1 - wx) * (1 - wy)
+        + g01 * wx * (1 - wy)
+        + g10 * (1 - wx) * wy
+        + g11 * wx * wy
+    )
+    return out if out_dtype is None else out.to(out_dtype)
+
+
+# tdspa_bilinear_sample(grid, coords, out, grid_bf16, out_bf16, T, H, W, C, N,
+#                       stream) in csrc/bilinear.cu.
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+@functools.cache
+def _kernel():
+    fn = build.load("bilinear").tdspa_bilinear_sample
+    fn.argtypes = ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bilinear_sample(grid, coords, out_dtype=None):
+    """grid [T, H, W, C] sampled at coords [N, T, 2] (x, y) -> [N, T, C].
+
+    ``out_dtype`` defaults to the grid's dtype, as the TPU kernel writes.
+    CUDA tensors launch the kernel, which takes an f32 or bf16 grid, f32
+    coordinates and an f32 or bf16 output; anything else raises. CPU tensors
+    run ``bilinear_sample_reference``.
+    """
+    out_dtype = grid.dtype if out_dtype is None else out_dtype
+    if grid.dim() != 4 or coords.dim() != 3 or coords.shape[-1] != 2 \
+            or coords.shape[1] != grid.shape[0]:
+        raise ValueError(f"expected grid [T,H,W,C] and coords [N,T,2]; got {tuple(grid.shape)}, "
+                         f"{tuple(coords.shape)}")
+    if grid.device != coords.device:
+        raise ValueError(f"grid and coords lie on different devices: {grid.device}, "
+                         f"{coords.device}")
+    if grid.device.type == "cpu":
+        return bilinear_sample_reference(grid, coords, out_dtype)
+    if grid.device.type != "cuda":
+        raise ValueError(f"unsupported device {grid.device}")
+    if grid.dtype not in (torch.float32, torch.bfloat16) or coords.dtype != torch.float32 \
+            or out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel takes an f32/bf16 grid, f32 coords and an f32/bf16 output; "
+                        f"got {grid.dtype}, {coords.dtype}, {out_dtype}")
+    frames, height, width, channels = grid.shape
+    n = coords.shape[0]
+    grid, coords = grid.contiguous(), coords.contiguous()
+    out = torch.empty((n, frames, channels), dtype=out_dtype, device=grid.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(grid.device):
+        rc = _kernel()(
+            grid.data_ptr(), coords.data_ptr(), out.data_ptr(),
+            int(grid.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            frames, height, width, channels, n,
+            torch.cuda.current_stream(grid.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"bilinear kernel launch failed: CUDA error {rc}")
+    bilinear_sample.launches += 1
+    return out
+
+
+bilinear_sample.launches = 0

@@ -1,0 +1,220 @@
+"""One unmasked self-attention transformer block: CUDA kernel wrapper + its
+plain version.
+
+Replaces the TPU kernel ``tdspa/kernels/block.py::_block_forward`` (body
+``_block_kernel``): one whole ``ParallelTransformerBlock`` layer without a
+mask or cross-attention,
+
+    ln1 = LayerNorm(x) * g1                             (x rounded to bf16 first)
+    q, k = RMSNorm_head(ln1 @ Wq) * sq, RMSNorm_head(ln1 @ Wk) * sk;  v = ln1 @ Wv
+    att = softmax(q k^T * Dh^-1/2) v                    (P normalised, then bf16)
+    y   = x + att @ Wo + bo
+    out = y + GELU_tanh(LayerNorm(y) * g2 @ W1 + b1) @ W2 + b2
+
+with every operand (weights, norm scales, biases) rounded to bf16, bf16
+products with f32 accumulation, two-pass f32 LayerNorm statistics, and f32
+residual sums. The TPU body keeps a whole item and the layer's weights in
+VMEM; an H100 SM holds 228 KB of shared memory, less than one readout item
+(129 x 1280 bf16 is 330 KB). So ``tdspa_torch/csrc/block.cu`` runs the layer
+as ``KERNELS_PER_CALL`` launches of its own kernels (LayerNorm, a Q/K/V GEMM
+whose N tile is one head so that the RMSNorm sees the head's whole row, an
+attention stage per (item, head) with all keys in shared memory, the out-
+projection GEMM with bias and residual, LayerNorm, the MLP GEMMs with bias
+and GELU or bias and residual). One wrapper call counts as one block
+launch (``fused_transformer_block.launches``).
+
+The kernel takes a head width in ``HEAD_DIMS``, at most ``MAX_SEQ`` tokens
+and widths that are multiples of 8 (``kernel_takes``); the model routes a
+block to it only then (``core/attention.py``). CUDA tensors launch it or
+raise; CPU tensors run ``block_reference``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+import torch.nn.functional as F
+
+from tdspa_torch.kernels import build
+
+HEAD_DIMS = (32, 64, 96, 128)
+MAX_SEQ = 256  # all keys of an (item, head) stay in shared memory
+KERNELS_PER_CALL = 7  # LN1, Q/K/V, attention, out-proj, LN2, MLP_in, MLP_out
+NORM_EPS = 1e-6
+OPERANDS = ("g1", "wqkv_t", "sq", "sk", "wo_t", "bo", "g2", "w1_t", "b1", "w2_t", "b2")
+
+
+def kernel_takes(seq: int, width: int, heads: int, head_dim: int, mlp: int) -> bool:
+    """The kernel's stated limits (the counterpart of ``fused_block_fits``)."""
+    return (head_dim in HEAD_DIMS and 1 <= seq <= MAX_SEQ and heads >= 1
+            and width >= 8 and width % 8 == 0 and mlp >= 8 and mlp % 8 == 0)
+
+
+def flatten_block_params(params) -> dict[str, torch.Tensor]:
+    """bf16 operands from a ``ParallelTransformerBlock`` state_dict (flax names).
+
+    The counterpart of ``_flatten_params``: every operand is rounded to
+    bf16; the projections are stored transposed, [out, in], the B operand
+    layout of the kernel's GEMMs, with Q, K and V stacked head-major into one
+    [3 H Dh, C] matrix (rows ordered (projection, head, d)).
+    """
+    def p(name):
+        return params[name].detach()
+
+    width, heads, head_dim = p("self_att.dense_query.kernel").shape
+    hd = heads * head_dim
+    qkv = [p(f"self_att.dense_{n}.kernel").reshape(width, hd) for n in ("query", "key", "value")]
+    ops = {
+        "g1": p("norm_q.scale"),
+        "wqkv_t": torch.cat(qkv, dim=1).t(),
+        "sq": p("self_att.norm_query.scale"),
+        "sk": p("self_att.norm_key.scale"),
+        "wo_t": p("self_att.dense_out.kernel").reshape(hd, width).t(),
+        "bo": p("self_att.dense_out.bias"),
+        "g2": p("norm_attn.scale"),
+        "w1_t": p("MLP_in.kernel").t(),
+        "b1": p("MLP_in.bias"),
+        "w2_t": p("MLP_out.kernel").t(),
+        "b2": p("MLP_out.bias"),
+    }
+    return {k: v.to(torch.bfloat16).contiguous() for k, v in ops.items()}
+
+
+def _operands(block) -> dict[str, torch.Tensor]:
+    """Flattened operands of a module, cached on it until a parameter changes
+    (a new tensor or an in-place update such as ``load_state_dict``)."""
+    if not isinstance(block, torch.nn.Module):
+        return flatten_block_params(block)
+    params = dict(block.named_parameters())
+    key = tuple((name, p.data_ptr(), p._version) for name, p in params.items())
+    cached = getattr(block, "_block_operands", None)
+    if cached is None or cached[0] != key:
+        with torch.inference_mode(False), torch.no_grad():
+            cached = (key, flatten_block_params(params))
+        block._block_operands = cached
+    return cached[1]
+
+
+def _layernorm(v, g):
+    """Bias-free LayerNorm with the two-pass variance, f32 (block.py:49-54)."""
+    mu = v.mean(-1, keepdim=True)
+    var = (v - mu).square().mean(-1, keepdim=True)
+    return (v - mu) * torch.rsqrt(var + NORM_EPS) * g
+
+
+def _bf16(v):
+    return v.to(torch.bfloat16).float()
+
+
+def block_reference(x, ops, heads: int, out_dtype=torch.float32):
+    """Plain PyTorch version of the kernel's function: x [..., S, C] -> [..., S, C].
+
+    Follows the TPU body's numerics: x rounded to bf16 at entry, bf16
+    operands and bf16 rounding of ln1, q, k, v, the normalised
+    probabilities, the attention output, ln2 and the GELU output; products
+    of bf16 values summed in f32; statistics and residual sums in f32; the
+    logits scaled in f32 after the product.
+    """
+    lead, (seq, width) = x.shape[:-2], x.shape[-2:]
+    f = {k: v.float() for k, v in ops.items()}
+    hd = f["wqkv_t"].shape[0] // 3
+    head_dim = hd // heads
+    xb = _bf16(x.reshape(-1, seq, width))
+    ln1 = _bf16(_layernorm(xb, f["g1"]))
+    q, k, v = (ln1 @ f["wqkv_t"].t()).split(hd, dim=-1)
+
+    def rms(t, scale):
+        t = t.unflatten(-1, (heads, head_dim))
+        return t * torch.rsqrt(t.square().mean(-1, keepdim=True) + NORM_EPS) * scale
+
+    q, k = _bf16(rms(q, f["sq"])), _bf16(rms(k, f["sk"]))
+    v = _bf16(v.unflatten(-1, (heads, head_dim)))
+    logits = torch.einsum("nqhd,nkhd->nhqk", q, k) * (1.0 / math.sqrt(head_dim))
+    unnorm = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = _bf16(unnorm / unnorm.sum(-1, keepdim=True))
+    att = _bf16(torch.einsum("nhqk,nkhd->nqhd", probs, v)).flatten(-2)
+    y = xb + att @ f["wo_t"].t() + f["bo"]
+    ln2 = _bf16(_layernorm(y, f["g2"]))
+    hid = _bf16(F.gelu(ln2 @ f["w1_t"].t() + f["b1"], approximate="tanh"))
+    out = y + (hid @ f["w2_t"].t() + f["b2"])
+    return out.to(out_dtype).reshape(lead + (seq, width))
+
+
+# tdspa_block_forward(x, out, g1, wqkv_t, sq, sk, wo_t, bo, g2, w1_t, b1, w2_t, b2,
+#                     xb, ln1, q, k, v, att, y, ln2, hid,
+#                     x_bf16, out_bf16, N, S, C, H, DH, MLP, scale, stream) in csrc/block.cu.
+ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+
+
+@functools.cache
+def _kernel():
+    fn = build.load("block").tdspa_block_forward
+    fn.argtypes = ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_transformer_block(x, block, heads: int, out_dtype=torch.float32):
+    """One unmasked self-attention ``ParallelTransformerBlock`` layer, fused.
+
+    ``block`` is the module (its flattened operands are cached on it) or a
+    mapping of its parameters by state_dict name. x [..., S, C] f32 or bf16
+    -> [..., S, C] in ``out_dtype``. CUDA tensors launch the kernel; CPU
+    tensors run ``block_reference``.
+    """
+    ops = _operands(block)
+    seq, width = x.shape[-2:]
+    hd = ops["wqkv_t"].shape[0] // 3
+    mlp = ops["w1_t"].shape[0]
+    if ops["wqkv_t"].shape[1] != width or hd % heads:
+        raise ValueError(f"x [..., {seq}, {width}] does not fit a block of {heads} heads and "
+                         f"operands {tuple(ops['wqkv_t'].shape)}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if x.device.type == "cpu":
+        return block_reference(x, ops, heads, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    head_dim = hd // heads
+    if not kernel_takes(seq, width, heads, head_dim, mlp):
+        raise ValueError(f"kernel takes head widths {HEAD_DIMS}, S <= {MAX_SEQ} and C, MLP "
+                         f"multiples of 8; got S={seq}, C={width}, H={heads}, Dh={head_dim}, "
+                         f"MLP={mlp}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel takes f32 or bf16 x, got {x.dtype}")
+    params = block.parameters() if isinstance(block, torch.nn.Module) else ()
+    if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params)):
+        raise NotImplementedError("fused_transformer_block is forward-only (inference)")
+    if any(t.device != x.device for t in ops.values()):
+        raise ValueError("x and the block's parameters lie on different devices")
+    lead = x.shape[:-2]
+    xf = x.reshape(-1, seq, width).contiguous()
+    items, rows = xf.shape[0], xf.shape[0] * seq
+    out = torch.empty(xf.shape, dtype=out_dtype, device=x.device)
+    if rows == 0:
+        return out.reshape(lead + (seq, width))
+
+    def scratch(cols, dtype=torch.bfloat16):
+        return torch.empty((rows, cols), dtype=dtype, device=x.device)
+
+    xb = scratch(width) if x.dtype == torch.float32 else xf
+    bufs = [xb, scratch(width), scratch(hd), scratch(hd), scratch(hd), scratch(hd),
+            scratch(width, torch.float32), scratch(width), scratch(mlp)]
+    with torch.cuda.device(x.device):
+        rc = _kernel()(
+            xf.data_ptr(), out.data_ptr(), *(ops[name].data_ptr() for name in OPERANDS),
+            *(b.data_ptr() for b in bufs),
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            items, seq, width, heads, head_dim, mlp, 1.0 / math.sqrt(head_dim),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"block kernel launch failed: CUDA error {rc}")
+    fused_transformer_block.launches += 1
+    return out.reshape(lead + (seq, width))
+
+
+fused_transformer_block.launches = 0

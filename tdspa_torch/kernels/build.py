@@ -26,11 +26,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# Extra flags per source. --fmad=false keeps the LK kernel from fusing a
-# product and a sum into one rounding, so its thresholded decisions see the
-# values its plain version computes.
-EXTRA_FLAGS = {"lk": ("--fmad=false",)}
-KERNELS = ("attention", "vit_attention", "lk", "matcher")
+# Extra flags per source. --fmad=false keeps a kernel from fusing a product
+# and a sum into one rounding: the LK kernel's thresholded decisions then see
+# the values its plain version computes, and the bilinear kernel equals the
+# plain gather bit for bit.
+EXTRA_FLAGS = {"lk": ("--fmad=false",), "bilinear": ("--fmad=false",)}
+KERNELS = ("attention", "vit_attention", "lk", "matcher", "quant_matmul", "block", "bilinear")
 
 
 def flags(name: str) -> tuple[str, ...]:

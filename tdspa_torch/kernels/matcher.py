@@ -21,7 +21,7 @@ import functools
 import torch
 
 from tdspa_torch.kernels import build
-from tdspa_torch.ops.geometry import bilinear_sample
+from tdspa_torch.kernels.bilinear import bilinear_sample_reference
 
 DIMS = (8, 16, 32)  # feature widths the kernel is built for
 
@@ -40,7 +40,7 @@ def cost_patches_reference(feats, template_vecs, positions, radius: int = 4):
     offs = offset_grid(radius, positions.device)  # [K2 2]
     k2 = offs.shape[0]
     coords = positions[:, None, :, :] + offs[:, None, :]  # [N K2 T 2]
-    patch = bilinear_sample(feats, coords.reshape(n * k2, t, 2)).reshape(n, k2, t, -1)
+    patch = bilinear_sample_reference(feats, coords.reshape(n * k2, t, 2)).reshape(n, k2, t, -1)
     return torch.einsum("nktd,nmd->ntmk", patch, template_vecs)
 
 

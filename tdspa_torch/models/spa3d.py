@@ -40,7 +40,11 @@ class TrackAutoEncoder3D(nn.Module):
     Parameters are created on ``device`` (GPU unless ``device="cpu"``) and
     initialised from ``torch.Generator(device).manual_seed(seed)`` with the
     flax initialisers' laws; load trained weights with
-    ``tdspa_torch.infer.checkpoint``.
+    ``tdspa_torch.infer.checkpoint``. Two inference knobs of the JAX model,
+    off by default, share the parameters: ``quantize`` runs every stack's
+    projections and MLPs through dynamic int8 (``csrc/quant_matmul.cu``);
+    ``fused_block`` runs each unmasked self-attention block (the decompress
+    and readout stacks) through the fused block kernel (``csrc/block.cu``).
     """
 
     def __init__(
@@ -79,16 +83,6 @@ class TrackAutoEncoder3D(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        if quantize:
-            raise NotImplementedError(
-                "quantize=True needs the int8 quant_matmul kernel, which is not "
-                "ported yet (ROADMAP.md queue 2)"
-            )
-        if fused_block:
-            raise NotImplementedError(
-                "fused_block=True needs the fused transformer-block kernel, which "
-                "is not ported yet (ROADMAP.md queue 2)"
-            )
         device = resolve_device(device)
         self.num_output_frames = num_output_frames
         self.num_frequencies = num_frequencies
@@ -103,7 +97,7 @@ class TrackAutoEncoder3D(nn.Module):
         two_f = 2 * num_frequencies
         stack = dict(qkv_size=qkv_size, num_heads=num_heads, dtype=dtype,
                      use_fused=fused_attention, residual_dtype=residual_dtype,
-                     device=device)
+                     quantize=quantize, fused_block=fused_block, device=device)
         self.initializer = ParamStateInit((num_latent_tokens, encoder_latent_dim), device)
         # (x, y, z, t/T) embedded per coordinate.
         self.track_token_projection = Dense(4 * two_f, track_token_dim, dtype, device)

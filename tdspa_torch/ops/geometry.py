@@ -2,38 +2,29 @@
 ``tdspa/ops/geometry.py``: ``bilinear_sample``, ``lift_2d_to_3d`` and the
 DINO / depth feature samplers).
 
-Plain tensor gathers, as in the JAX tail. Corner rule of the reference:
-interpolation weights come from the *unclamped* floor, and each corner index
-is clamped to the grid on its own, so points outside the grid take edge
-values with out-of-range weights.
+``bilinear_sample`` runs the bilinear kernel (``csrc/bilinear.cu``, the
+counterpart of ``tdspa/kernels/bilinear.py``) on CUDA tensors and the plain
+gather on CPU tensors; both give the JAX tail's f32 products. Corner rule of
+the reference: interpolation weights come from the *unclamped* floor, and
+each corner index is clamped to the grid on its own, so points outside the
+grid take edge values with out-of-range weights.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tdspa_torch.kernels import bilinear
+
 
 def bilinear_sample(grid: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """grid float[T H W C] sampled at coords float[N T 2] (x, y) -> [N T C]."""
-    height, width = grid.shape[1], grid.shape[2]
-    x, y = coords[..., 0], coords[..., 1]
-    x0f, y0f = torch.floor(x), torch.floor(y)
-    wx = (x - x0f)[..., None]
-    wy = (y - y0f)[..., None]
-    xi, yi = x0f.long(), y0f.long()
-    x0, x1 = xi.clamp(0, width - 1), (xi + 1).clamp(0, width - 1)
-    y0, y1 = yi.clamp(0, height - 1), (yi + 1).clamp(0, height - 1)
+    """grid float[T H W C] sampled at coords float[N T 2] (x, y) -> [N T C].
 
-    t_idx = torch.arange(grid.shape[0], device=grid.device)[None, :]  # [1 T]
-    g00 = grid[t_idx, y0, x0]
-    g01 = grid[t_idx, y0, x1]
-    g10 = grid[t_idx, y1, x0]
-    g11 = grid[t_idx, y1, x1]
-    return (
-        g00 * (1 - wx) * (1 - wy)
-        + g01 * wx * (1 - wy)
-        + g10 * (1 - wx) * wy
-        + g11 * wx * wy
+    The result has the dtype of the grid's products with f32 weights (f32
+    for an f32 or bf16 grid), as the plain gather gives.
+    """
+    return bilinear.bilinear_sample(
+        grid, coords, out_dtype=torch.promote_types(grid.dtype, coords.dtype)
     )
 
 

@@ -6,10 +6,11 @@ Imports no JAX, so it also runs on a GPU host that has none (the repository's
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: kernel vs plain version as in ``tests/test_torch_attention.py``
-(2e-2 abs, + 2**-7 rel for a bf16 output), for both attention kernels; the
-tiny bf16 model or ViT with the kernel vs the same one with the plain
-attention path, 5e-2 of the output range (the two round differently inside
-every attention).
+(2e-2 abs, + 2**-7 rel for a bf16 output), for both attention kernels and
+the fused block; the int8 and bilinear kernels equal their plain versions
+bit for bit; the tiny bf16 model or ViT with the kernel vs the same one with
+the plain attention path, 5e-2 of the output range (the two round
+differently inside every attention).
 """
 
 import pytest
@@ -208,3 +209,108 @@ def test_tracker_on_the_gpu_launches_both_kernels(cuda_device):
     assert track_video_lk_kernel.launches - lk_before == 1
     assert cost_patches_multi.launches - m_before == 8
     assert out["tracks"].is_cuda and out["tracks"].shape == (64, 12, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2048, 384, 768, torch.float32),
+                                   (1111, 1152, 2048, torch.float32),
+                                   (4100, 1536, 384, torch.bfloat16), (3, 16, 8, torch.float32),
+                                   (70, 48, 40, torch.bfloat16)])
+def test_quant_kernel_equals_plain_version(cuda_device, shape):
+    """Bit for bit: the same quantised values and exact integer sums, then the
+    same two f32 products (as in chip_smoke.py)."""
+    from tdspa_torch.kernels import quant_matmul as qmm
+
+    m, k, n, dtype = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = (3.0 * torch.randn((m, k), generator=gen, device=cuda_device)).to(dtype)
+    w = torch.randn((k, n), generator=gen, device=cuda_device) * 0.05
+    before = qmm.quant_matmul.launches
+    got = qmm.quant_matmul(x, w)
+    torch.cuda.synchronize()
+    assert qmm.quant_matmul.launches == before + 1
+    assert torch.equal(got, qmm.quant_matmul_reference(x, w))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        qmm.quant_matmul(x[:, :8].contiguous(), w[:8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 129, 1280, 8, 96, 1536), (1, 128, 1152, 8, 96, 2048),
+                                   (3, 9, 64, 2, 32, 96), (2, 256, 256, 2, 128, 64),
+                                   (5, 17, 128, 4, 64, 40)])
+def test_block_kernel_matches_plain_version(cuda_device, shape):
+    """Tolerance as in chip_smoke.py: 2e-2 abs (a bf16 rounding of an
+    intermediate may land one step away; f32 summation order)."""
+    from tdspa_torch.core.attention import ParallelTransformerBlock, reset_parameters
+    from tdspa_torch.kernels.block import _operands, block_reference, fused_transformer_block
+
+    items, seq, width, heads, head_dim, mlp = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    block = ParallelTransformerBlock(width, mlp, heads, heads * head_dim, fused_block=True,
+                                     device=cuda_device)
+    reset_parameters(block, gen)
+    with torch.no_grad():
+        for param in block.parameters():
+            if param.dim() == 1:
+                param.add_(0.1 * torch.randn(param.shape, generator=gen, device=cuda_device))
+    x = torch.randn((items, seq, width), generator=gen, device=cuda_device)
+    with torch.inference_mode():
+        for x_in, out_dtype in ((x, torch.float32), (x.to(torch.bfloat16), torch.bfloat16)):
+            before = fused_transformer_block.launches
+            got = fused_transformer_block(x_in, block, heads, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            assert fused_transformer_block.launches == before + 1 and got.dtype == out_dtype
+            want = block_reference(x_in, _operands(block), heads, out_dtype)
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=0 if out_dtype == torch.float32 else 2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dino", "depth", "bf16_grid", "odd_channels"])
+def test_bilinear_kernel_equals_plain_gather(cuda_device, case):
+    from tdspa_torch.kernels.bilinear import bilinear_sample, bilinear_sample_reference
+    from tdspa_torch.ops.geometry import bilinear_sample as tail_sample
+
+    shape = {"dino": (6, 36, 36, 768), "depth": (6, 64, 80, 1), "bf16_grid": (4, 9, 7, 24),
+             "odd_channels": (3, 7, 9, 5)}[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    grid = torch.randn(shape, generator=gen, device=cuda_device)
+    if case == "bf16_grid":
+        grid = grid.to(torch.bfloat16)
+    t, h, w, _ = shape
+    coords = torch.rand((300, t, 2), generator=gen, device=cuda_device)
+    coords = coords * torch.tensor([w + 6.0, h + 6.0], device=cuda_device) - 3.0  # outside too
+    before = bilinear_sample.launches
+    got = tail_sample(grid, coords)
+    torch.cuda.synchronize()
+    assert bilinear_sample.launches == before + 1 and got.dtype == torch.float32
+    assert torch.equal(got, bilinear_sample_reference(grid, coords))
+    own = bilinear_sample(grid, coords)  # the TPU kernel's default: the grid's dtype
+    assert own.dtype == grid.dtype and torch.equal(own, got.to(grid.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob", ["quantize", "fused_block"])
+def test_tiny_serving_models_run_their_kernels(cuda_device, knob):
+    """One layer per stack: quantised, 28 int8 launches (4 blocks x 6 + the
+    cross-attention's 4) and 5 attention launches; fused block (head width
+    32), 2 block launches (decompress, readout) and 3 attention launches."""
+    from tdspa_torch.kernels import quant_matmul as qmm
+    from tdspa_torch.kernels.block import fused_transformer_block
+
+    model = tiny_model_3d(12, device=cuda_device, dtype=torch.bfloat16, fused_attention=True,
+                          qkv_size=64, **{knob: True})
+    plain = tiny_model_3d(12, device=cuda_device, dtype=torch.bfloat16, fused_attention=True,
+                          qkv_size=64)
+    plain.load_state_dict(model.state_dict())
+    batch = to_torch(synthetic_batch(0, with_features=True), cuda_device)
+    counters = (fused_masked_attention, qmm.quant_matmul, fused_transformer_block)
+    before = [fn.launches for fn in counters]
+    with torch.inference_mode():
+        got = model(batch)
+    launched = [fn.launches - b for fn, b in zip(counters, before)]
+    assert launched == ([5, 28, 0] if knob == "quantize" else [3, 0, 2])
+    with torch.inference_mode():
+        want = plain(batch)
+    scale = want.tracks.abs().max().item()
+    torch.testing.assert_close(got.tracks, want.tracks, atol=5e-2 * scale, rtol=0)

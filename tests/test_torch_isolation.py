@@ -46,7 +46,9 @@ def test_port_imports_without_jax_tdspa_or_triton():
                  "tdspa_torch.utils.synthetic_video", "tdspa_torch.eval.tracking_quality",
                  "tdspa_torch.features.vit", "tdspa_torch.features.dino",
                  "tdspa_torch.features.depth", "tdspa_torch.core.layers",
-                 "tdspa_torch.ops.resize"):
+                 "tdspa_torch.ops.resize", "tdspa_torch.core.quant",
+                 "tdspa_torch.kernels.quant_matmul", "tdspa_torch.kernels.block",
+                 "tdspa_torch.kernels.bilinear"):
         assert name in report["modules"]
 
 

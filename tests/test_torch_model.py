@@ -157,8 +157,16 @@ def test_full_size_parameter_tree_matches_flax():
 
 @pytest.mark.parametrize("knob", ["quantize", "fused_block"])
 def test_unported_kernels_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tiny_model_3d(T, device="cpu", **{knob: True})
+    """Both serving knobs were unported until their kernels came (PR 4): they
+    no longer raise and reach every block of the four stacks."""
+    from tdspa_torch.core.attention import ParallelTransformerBlock
+    from tdspa_torch.core.quant import QuantDenseGeneral
+
+    model = tiny_model_3d(T, device="cpu", **{knob: True})
+    blocks = [m for m in model.modules() if isinstance(m, ParallelTransformerBlock)]
+    assert len(blocks) == 4 and all(getattr(b, knob) for b in blocks)
+    quantised = [m for m in model.modules() if isinstance(m, QuantDenseGeneral)]
+    assert len(quantised) == (4 * 6 + 4 if knob == "quantize" else 0)  # + the cross-attention
 
 
 def test_gpu_entry_point_raises_without_a_gpu():

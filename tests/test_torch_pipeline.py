@@ -410,3 +410,52 @@ def test_host_providers_match_jax(tmp_path):
     loaded = PrecomputedTrackProvider(str(tmp_path / "tracks.npz"))(video)
     assert loaded["visible"].shape == (16, T, 1)
     np.testing.assert_array_equal(ConstantDepthProvider()(video), JaxConstantDepth()(video))
+
+
+@pytest.mark.parametrize("knob", ["quantize", "fused_block"])
+def test_serving_knob_reaches_the_model_and_matches_jax(knob, monkeypatch):
+    """``InferencePipeline(quantize=True)`` / ``(fused_block=True)``: the knob
+    reaches the model the pipeline builds (built tiny here, head width 32 so
+    that the block kernel takes the decompress and readout stacks), and
+    run_on_frames matches the JAX pipeline in the same configuration at f32
+    (JAX's kernels in interpret mode): 2e-5, the f32 tolerance."""
+    from tdspa.kernels import attention as jax_kernels
+    from tdspa_torch.infer import pipeline as pipeline_lib
+
+    monkeypatch.setattr(jax_kernels, "INTERPRET_DEFAULT", True)
+    tiny = dict(qkv_size=64, **{knob: True})
+    rng = np.random.default_rng(3)
+    params = jax.tree_util.tree_map(
+        lambda p: p + 0.05 * rng.standard_normal(p.shape).astype(np.float32),
+        params_to_flax(tiny_model_3d(T, device="cpu", seed=3, qkv_size=64).state_dict()),
+    )
+    built = {}
+
+    def tiny_model(num_output_frames, use_dino, use_depth, dtype, fused_attention, quantize,
+                   residual_dtype, fused_block, device, seed):
+        built.update(quantize=quantize, fused_block=fused_block)
+        return tiny_model_3d(num_output_frames, device=device, dtype=dtype,
+                             fused_attention=fused_attention, residual_dtype=residual_dtype,
+                             **tiny)
+
+    monkeypatch.setattr(pipeline_lib, "TrackAutoEncoder3D", tiny_model)
+    pipe = InferencePipeline(
+        num_output_frames=T, num_query_points=NUM_QUERIES, num_support_tracks=NUM_SUPPORT,
+        track_provider=StaticGridProvider(grid_size=4), depth_provider=ConstantDepthProvider(),
+        dino_extractor=lambda video: _dino_grid(), dtype=torch.float32, params=params,
+        device="cpu", **{knob: True},
+    )
+    pipe.split_indices = lambda num_tracks, num_queries, num_frames: _jax_split_indices(
+        num_tracks, num_queries, seed=0)
+    assert built == {"quantize": knob == "quantize", "fused_block": knob == "fused_block"}
+    jax_pipe = JaxPipeline(
+        num_output_frames=T, num_query_points=NUM_QUERIES, num_support_tracks=NUM_SUPPORT,
+        track_provider=JaxStaticGrid(grid_size=4), depth_provider=JaxConstantDepth(),
+        dino_extractor=lambda video: _dino_grid(), params=params, dtype=jnp.float32,
+        model=jax_tiny_model_3d(T, **tiny), **{knob: True},
+    )
+    want, got = jax_pipe.run_on_frames(_video()), pipe.run_on_frames(_video())
+    for name in ("tracks", "visible_logits"):
+        np.testing.assert_allclose(getattr(got["predictions"], name).numpy(),
+                                   np.asarray(getattr(want["predictions"], name)), **F32_TOL,
+                                   err_msg=name)
