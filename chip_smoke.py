@@ -12,7 +12,9 @@ and the script exits non-zero:
    ``nvidia-smi`` reports them; turns TF32 off so the plain references are
    full f32.
 2. build: compiles every kernel under ``tdspa_torch/csrc/`` with ``nvcc``
-   (one process per source, in parallel) into ``build/tdspa_torch/``.
+   (one process per source, in parallel) into ``build/tdspa_torch/`` and
+   prints each kernel's registers, static shared memory and spills from
+   the compiler's ``-Xptxas -v`` report.
 3. kernel: the fused attention kernel against its plain PyTorch version
    (``attention_reference``) at the five attention shapes of the 3DSPA
    forward, in both output dtypes, plus edge cases; each with its error
@@ -56,19 +58,22 @@ and the script exits non-zero:
    one whole-video call of the same extractors; tracking quality as in 7;
    ``save_results`` writes the reference's ``predictions.npz``.
 
-11. quant_matmul_kernel: the dynamic-int8 kernel (``csrc/quant_matmul.cu``)
-   against ``quant_matmul_reference`` at every (M, K, N) of the quantised
-   full-width forward (f32 x, as the pipeline gives it), plus a bf16 x and a
-   ragged M: equal bit for bit; kernel, wrapper, plain and bound times,
-   ``torch._int_mm`` on the pre-quantised operands and a bf16 matmul timed
-   only, as yardsticks.
+11. quant_matmul_kernel: the dynamic-int8 kernels (``csrc/quant_matmul.cu``:
+   quantise pass + TMA/wgmma GEMM) against ``quant_matmul_reference`` at
+   every (M, K, N) of the quantised full-width forward (f32 x, as the
+   pipeline gives it), plus a bf16 x and a ragged M: equal bit for bit; the
+   product's time, each pass's alone, the wrapper's (cached weights),
+   plain and bound times, ``torch._int_mm`` on the pre-quantised operands
+   and a bf16 matmul timed only, as yardsticks.
 12. block_kernel: the fused block (``csrc/block.cu``) against
    ``block_reference`` at the readout [512,129,1280] (MLP 1536) and
    decompress [1,128,1152] (MLP 2048) layers, with the port's unfused layer
    (what ``fused_block=False`` runs) timed beside it.
 13. bilinear_kernel: the bilinear kernel (``csrc/bilinear.cu``) against the
    plain gather on the tail's DINO grid [150,36,36,768] and depth maps
-   [150,512,512,1] at 4096 tracks: equal bit for bit.
+   [150,512,512,1] at 4096 tracks: equal bit for bit; ``grid_sample`` with
+   border padding and ``align_corners`` (the same function) timed only, as
+   the yardstick.
 14. pipeline_quantized and pipeline_fused_block: ``InferencePipeline(
    quantize=True)`` and ``(fused_block=True)`` with phase 4's providers,
    seed and weights: per forward 106 int8 + 19 attention launches, and 8
@@ -90,6 +95,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -135,6 +141,7 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
+SMS = 132  # H100 SXM streaming multiprocessors; read from the card in phase_device
 # Kernel vs plain version, same bf16 inputs. Both round P to bf16 (the kernel
 # before normalising, the plain version after), each a relative error
 # <= 2**-9 per probability, so |diff| <= 2 * 2**-9 * max|v| ~ 0.018 for the
@@ -171,6 +178,8 @@ BLOCK_ATOL = 2e-2
 # The bilinear kernel does the plain gather's f32 products and sums in its
 # order without contraction (--fmad=false): bit for bit.
 BILINEAR_ATOL = 0.0
+BILINEAR_LIBRARY = ("torch.nn.functional.grid_sample(grid.permute(0,3,1,2), g, bilinear, "
+                    "border, align_corners=True), g normalised outside the call")
 # Quantised pipeline vs the bf16 one (same weights and split): int8 rounding
 # of every projection's input and weight (<= 1/254 of a row's or column's
 # max) through 15 layers; held as JAX holds its quantised forward against
@@ -326,6 +335,8 @@ def phase_device() -> dict:
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global SMS
+    SMS = torch.cuda.get_device_properties(0).multi_processor_count
     info = {
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
@@ -338,15 +349,49 @@ def phase_device() -> dict:
     return info
 
 
+def ptxas_report(log: str) -> list[dict]:
+    """Each kernel of one library as ``nvcc -Xptxas -v`` reports it: registers
+    per thread, static shared memory (dynamic shared memory is set at launch)
+    and spills."""
+    rows, current = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = {"kernel": line.split("'")[1]}
+            rows.append(current)
+        elif current is not None and "spill stores" in line:
+            for value, what in re.findall(r"(\d+) bytes (stack frame|spill stores|spill loads)",
+                                          line):
+                current[what.replace(" ", "_") + "_bytes"] = int(value)
+        elif current is not None and re.search(r"Used \d+ registers", line):
+            current["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            current["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    names = [row["kernel"] for row in rows]
+    try:  # readable names where the toolchain's demangler is present
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
+                             timeout=60, check=True).stdout.splitlines()
+        if len(out) == len(names):
+            for row, name in zip(rows, out):
+                row["kernel"] = name.removeprefix("void ").replace(
+                    "(anonymous namespace)::", "").split("(")[0]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return rows
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     seconds = build.build_all()
-    ptxas = {
-        name: [line.strip() for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines()
-               if "registers" in line or "spill" in line or "entry function" in line][:48]
-        for name in build.KERNELS if (build.BUILD_DIR / f"{name}.log").exists()
-    }
-    emit("build", wall_s=time.perf_counter() - t0, per_source_s=seconds, ptxas=ptxas)
+    emit("build", wall_s=time.perf_counter() - t0, per_source_s=seconds)
+    for name in build.KERNELS:
+        log = (build.BUILD_DIR / f"{name}.log").read_text()
+        # ptxas's "Potential Performance Loss" notes (e.g. C7515, C7518: wgmma
+        # serialised) and the compiler's warnings, by code.
+        notes = re.findall(r"\((C\d+)\) Potential Performance Loss", log)
+        emit("build_report", library=name, kernels=ptxas_report(log),
+             performance_notes={code: notes.count(code) for code in sorted(set(notes))},
+             warnings=[line.strip()[:200] for line in log.splitlines()
+                       if "warning" in line.lower()][:8])
 
 
 def attention_inputs(gen, batch, seq, kv_len, heads, depth, masked):
@@ -995,8 +1040,10 @@ def phase_pipeline_full(scene) -> dict:
 
 
 def phase_quant_kernel() -> dict:
-    """The int8 kernel against ``quant_matmul_reference`` at the quantised
-    forward's shapes; returns one forward's totals."""
+    """The int8 kernels against ``quant_matmul_reference`` at the quantised
+    forward's shapes: the product (quantise pass + GEMM), each pass alone and
+    the wrapper with its cached weights timed; returns one forward's
+    totals."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     totals = new_totals()
     for name, m, k, n, per_forward, x_dtype in QUANT_SHAPES:
@@ -1010,7 +1057,11 @@ def phase_quant_kernel() -> dict:
         del got, want
         wq, ws = qmm.quantize_weight(w)
         ms = cuda_ms(lambda: qmm.launch(x, wq, ws), iters=10)
-        wrapper_ms = cuda_ms(lambda: qmm.quant_matmul(x, w), iters=10)
+        quantize_ms = cuda_ms(lambda: qmm.quantize_rows(x), iters=10)
+        xq_k, sx_k = qmm.quantize_rows(x)
+        gemm_ms = cuda_ms(lambda: qmm.int8_gemm(xq_k, sx_k, wq, ws), iters=10)
+        del xq_k, sx_k
+        wrapper_ms = cuda_ms(lambda: qmm.quant_matmul(x, w), iters=10)  # weights cached
         plain_ms = cuda_ms(lambda: qmm.quant_matmul_reference(x, w), iters=3)
         xq, _ = qmm.dynamic_int8(x.float(), -1)
         int_mm_ms = cuda_ms(lambda: torch._int_mm(xq, wq.t()), iters=10)
@@ -1022,7 +1073,8 @@ def phase_quant_kernel() -> dict:
         bound_ms = max(bytes_ms, flops_ms)
         row = dict(shape=name, M=m, K=k, N=n, x_dtype=str(x_dtype).removeprefix("torch."),
                    per_forward=per_forward, max_abs_err=err, atol=QUANT_ATOL, finite=finite,
-                   ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, library_ms=int_mm_ms,
+                   ms=ms, quantize_ms=quantize_ms, gemm_ms=gemm_ms, wrapper_ms=wrapper_ms,
+                   bn=qmm._launch_shape(m, n, SMS)[0], plain_ms=plain_ms, library_ms=int_mm_ms,
                    library="torch._int_mm on the pre-quantised operands",
                    bf16_matmul_ms=bf16_ms, bound_ms=bound_ms,
                    bound_by="bytes" if bytes_ms >= flops_ms else "operations",
@@ -1032,9 +1084,11 @@ def phase_quant_kernel() -> dict:
             raise AssertionError(f"int8 kernel disagrees with its plain version: {row}")
         if per_forward:
             totals["max_abs_err"] = max(totals["max_abs_err"], err)
-            for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", int_mm_ms),
-                               ("bytes_ms", bytes_ms), ("flops_ms", flops_ms)):
-                totals[key] += per_forward * value
+            for key, value in (("ms", ms), ("quantize_ms", quantize_ms), ("gemm_ms", gemm_ms),
+                               ("wrapper_ms", wrapper_ms), ("plain_ms", plain_ms),
+                               ("library_ms", int_mm_ms), ("bytes_ms", bytes_ms),
+                               ("flops_ms", flops_ms)):
+                totals[key] = totals.get(key, 0.0) + per_forward * value
         del x, w, wq, ws, xq, wb, xb
         torch.cuda.empty_cache()
     return totals
@@ -1127,6 +1181,16 @@ def phase_bilinear_kernel(providers) -> dict:
         ms = cuda_ms(lambda: bilinear_kernel(grid, coords, out_dtype), iters=10)
         plain_ms = cuda_ms(lambda: bilinear_sample_reference(grid, coords, out_dtype), iters=3)
         frames, height, width, channels = grid.shape
+        # The yardstick: grid_sample with border padding and align_corners
+        # computes the reference's corner rule (tests/test_torch_bilinear.py);
+        # its normalised [T, 1, N, 2] grid is made outside the timed call.
+        g = torch.stack([coords[..., 0] * (2.0 / (width - 1)) - 1.0,
+                         coords[..., 1] * (2.0 / (height - 1)) - 1.0], dim=-1)
+        g = g.permute(1, 0, 2)[:, None].contiguous().to(grid.dtype)
+        library_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(
+            grid.permute(0, 3, 1, 2), g, mode="bilinear", padding_mode="border",
+            align_corners=True), iters=10)
+        del g
         n = coords.shape[0]
         # The grid cells this run's points touch (four corners, clamped).
         x0f, y0f = coords[..., 0].floor().long(), coords[..., 1].floor().long()
@@ -1144,8 +1208,8 @@ def phase_bilinear_kernel(providers) -> dict:
         row = dict(case=name, grid=list(grid.shape),
                    grid_dtype=str(grid.dtype).removeprefix("torch."),
                    points=n, per_tail=per_tail, cells_touched=cells, max_abs_err=err,
-                   atol=BILINEAR_ATOL, finite=finite, ms=ms, plain_ms=plain_ms, library_ms=None,
-                   library="no single PyTorch call has the reference's corner rule",
+                   atol=BILINEAR_ATOL, finite=finite, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library=BILINEAR_LIBRARY,
                    bound_ms=bound_ms, bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                    roofline_share=bound_ms / ms)
         emit("bilinear_kernel", **row)
@@ -1153,10 +1217,9 @@ def phase_bilinear_kernel(providers) -> dict:
             raise AssertionError(f"bilinear kernel disagrees with the plain gather: {row}")
         if per_tail:
             totals["max_abs_err"] = max(totals["max_abs_err"], err)
-            for key, value in (("ms", ms), ("plain_ms", plain_ms), ("bytes_ms", bytes_ms),
-                               ("flops_ms", flops_ms)):
+            for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                               ("bytes_ms", bytes_ms), ("flops_ms", flops_ms)):
                 totals[key] += per_tail * value
-    totals["library_ms"] = None
     return totals
 
 
@@ -1225,7 +1288,7 @@ def phase_serving(path, knob: str, profile: bool = False) -> dict:
 KERNEL_CLASSES = (  # (class, substrings of a device kernel's name), first match wins
     ("vit_attention", ("vit_attention_kernel",)),
     ("attention", ("attention_fwd_kernel",)),
-    ("quant_matmul", ("quant_matmul_kernel",)),
+    ("quant_matmul", ("int8_gemm_kernel", "quantize_rows_kernel")),
     ("block", ("layernorm_kernel", "gemm_kernel<", "attention_kernel<")),
     ("bilinear", ("bilinear_kernel",)),
     ("lk", ("lk_track_kernel",)),
@@ -1386,6 +1449,9 @@ def main(argv: list[str]) -> int:
         else "operations",
         "library_ms": quant_totals["library_ms"],
         "library": "torch._int_mm on the pre-quantised operands",
+        "quantize_ms": quant_totals["quantize_ms"],
+        "gemm_ms": quant_totals["gemm_ms"],
+        "wrapper_ms": quant_totals["wrapper_ms"],
         "per": (f"one quantised forward: the {QUANT_LAUNCHES} launches at their shapes, f32 x; "
                 f"launches counted over {RUNS} pipeline_quantized runs"),
     })
@@ -1419,7 +1485,8 @@ def main(argv: list[str]) -> int:
         "bound_ms": max(bilinear_totals["bytes_ms"], bilinear_totals["flops_ms"]),
         "bound_by": "bytes" if bilinear_totals["bytes_ms"] >= bilinear_totals["flops_ms"]
         else "operations",
-        "library_ms": None,
+        "library_ms": bilinear_totals["library_ms"],
+        "library": BILINEAR_LIBRARY,
         "per": (f"one fused_tail: {TAIL_BILINEAR_LAUNCHES} launches (the DINO grid once, the "
                 f"depth maps twice), f32 output; launches counted over {RUNS} pipeline runs"),
     })

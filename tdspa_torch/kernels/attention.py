@@ -13,7 +13,9 @@ Replaces the TPU kernels of ``tdspa/kernels/attention.py``:
 * in the DINOv2 and VDA ViTs, ``_flash_perhead`` /
   ``_mha_flash_perhead_kernel`` (maskless, about 1.3k tokens per frame,
   head width 64): ``tdspa_torch/csrc/vit_attention.cu`` (``vit_attention``),
-  which operations bound on an H100.
+  which operations bound on an H100: TMA loads from a producer warp, two
+  consumer warpgroups on ``wgmma`` with the softmax of one tile under the
+  P.V of the last (FlashAttention-3's shape).
 
 Both wrappers launch their kernel for CUDA tensors and run
 ``attention_reference`` for CPU tensors; neither falls back from one to the
@@ -157,7 +159,7 @@ def fused_masked_attention(q, k, v, key_mask=None, out_dtype=torch.float32):
 
 fused_masked_attention.launches = 0
 
-VIT_ROWS = 128  # query rows per block of csrc/vit_attention.cu (8 warps of 16)
+VIT_ROWS = 128  # query rows per block of csrc/vit_attention.cu (two warpgroups of 64)
 VIT_HEAD = 64  # the head width it takes (every DINOv2 preset)
 # tdspa_vit_attention_forward(q, k, v, out, out_bf16, B, S, K, H, D,
 #                             q_blocks, scale, stream) in csrc/vit_attention.cu.

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc`` for ``sm_90a`` into ``build/tdspa_torch/lib<name>-<digest>.so`` at
-the repository root (git-ignored). The digest covers the source and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
+the repository root (git-ignored). The digest covers the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one loads at once.
 Nothing here runs at import time: a kernel builds at its first use, or all
 of them together (one ``nvcc`` each, in parallel) through ``build_all``.
 """
@@ -53,7 +54,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(flags(name)).encode()).hexdigest()[:12]
+    headers = b"".join(path.read_bytes() for path in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source + headers + " ".join(flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

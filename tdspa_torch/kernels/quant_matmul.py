@@ -4,15 +4,17 @@ Replaces the TPU kernel ``tdspa/kernels/quant_matmul.py::_quant_matmul_pallas``
 (body ``_quant_matmul_kernel``): ``y = int8(x / sx) . int8(W / sw) * sx * sw``
 with per-row activation scales ``sx = max(amax, 1e-30) * f32(1/127)``
 computed from x upcast to f32, per-column weight scales computed outside the kernel,
-exact integer accumulation and f32 output. The Hopper kernel
-(``tdspa_torch/csrc/quant_matmul.cu``) quantises each 64-row slab of x into
-shared memory and runs int8 ``mma.sync`` over it; it takes every shape of
-the 3DSPA forward, so the TPU's VMEM-fit dispatch (``quant_matmul_fits``,
-``_pick_bm``) has no counterpart.
+exact integer accumulation and f32 output. The Hopper kernels
+(``tdspa_torch/csrc/quant_matmul.cu``) run in two launches: a quantise pass
+that reads x once and writes int8 rows and their scales into scratch, then
+a persistent TMA + ``wgmma`` GEMM that dequantises in its epilogue. They
+take every shape of the 3DSPA forward, so the TPU's VMEM-fit dispatch
+(``quant_matmul_fits``, ``_pick_bm``) has no counterpart.
 
-``quant_matmul`` launches the kernel for CUDA tensors and runs
+``quant_matmul`` launches the kernels for CUDA tensors and runs
 ``quant_matmul_reference`` for CPU tensors; it never falls back from one to
-the other. ``quant_matmul.launches`` counts kernel launches.
+the other. ``quant_matmul.launches`` counts its products (each one
+quantise pass and one GEMM).
 """
 
 from __future__ import annotations
@@ -21,12 +23,13 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from tdspa_torch.kernels import build
 
-ROWS = 64  # x rows per block of csrc/quant_matmul.cu
-COLS = 128  # output columns per N tile
-MAX_K = 3072  # the int8 slab [64, K] and two weight tiles fit one SM's shared memory
+ROWS = 128  # output rows per GEMM tile of csrc/quant_matmul.cu (two warpgroups of 64)
+BN_CHOICES = (64, 128)  # output columns per GEMM tile
+MAX_K = 3072  # the quantise pass holds a row in registers: 24 float4 per lane
 
 
 # XLA rewrites a division by a constant into a product with the constant's
@@ -70,84 +73,157 @@ def quantize_weight(w: torch.Tensor):
 
     Per-column scales as in the TPU entry (``quant_matmul.py:226-228``); the
     transposed layout puts each output column's K values in one row, the
-    column-major B operand of ``mma.sync``.
+    K-major B operand of ``wgmma``.
     """
     wq, ws = dynamic_int8(w.float(), 0)
     return wq.t().contiguous(), ws.reshape(-1).contiguous()
 
 
-def _launch_shape(m: int, n: int, sms: int) -> tuple[int, int]:
-    """(N splits, N tiles per split) of the grid.
+# Quantised weights per tensor: the tensor (a view's base) keys the entry,
+# so it dies with the tensor; inside it, its version counter, address,
+# shape, strides, dtype and device, so an in-place update or another view
+# quantises anew.
+_QUANTIZED = WeakIdKeyDictionary()
 
-    One block per 64-row M tile walks the N tiles of its split. A large M
-    keeps every N tile in one block (the slab is quantised once); a small M
-    splits the N tiles over more blocks, to reach about two blocks per SM.
+
+def cached_quantized_weight(w: torch.Tensor):
+    """``quantize_weight(w)``, computed once per state of ``w``.
+
+    The cached operands are the integers ``quantize_weight`` gives, so the
+    product does not change. Inference tensors (made under
+    ``torch.inference_mode``) keep no version counter and are quantised on
+    every call.
+    """
+    if w.is_inference():
+        return quantize_weight(w)
+    owner = w if w._base is None else w._base
+    key = (w._version, w.data_ptr(), tuple(w.shape), w.stride(), w.dtype, w.device)
+    slot = _QUANTIZED.get(owner)
+    if slot is None:
+        slot = _QUANTIZED[owner] = {}
+    if key not in slot:
+        for stale in [k for k in slot if k[0] != key[0]]:
+            del slot[stale]
+        slot[key] = quantize_weight(w)
+    return slot[key]
+
+
+def _launch_shape(m: int, n: int, sms: int) -> tuple[int, int, int]:
+    """(BN, output tiles, persistent blocks) of the GEMM.
+
+    Tiles are ``ROWS`` x BN; the grid is one block per SM (fewer when there
+    are fewer tiles), each walking its share of the tiles. BN = 128 when
+    such tiles alone give every SM one (every large-M shape of the 3DSPA
+    forward: each N there is a multiple of 128); a small M takes BN = 64, which
+    doubles the tiles of its launch-bound products.
     """
     m_tiles = -(-m // ROWS)
-    n_tiles = -(-n // COLS)
-    splits = min(n_tiles, max(1, -(-2 * sms // m_tiles)))
-    per_split = -(-n_tiles // splits)
-    return -(-n_tiles // per_split), per_split
+    bn = 128 if m_tiles * -(-n // 128) >= sms else 64
+    tiles = m_tiles * -(-n // bn)
+    return bn, tiles, min(tiles, sms)
 
 
-# tdspa_quant_matmul(x, wq, ws, out, x_bf16, M, K, N, splits, tiles_per_split,
-#                    stream) in csrc/quant_matmul.cu.
-ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# tdspa_quantize_rows(x, xq, sx, x_bf16, M, K, stream) and
+# tdspa_int8_gemm(xq, sx, wq, ws, out, M, K, N, bn, grid, stream) in
+# csrc/quant_matmul.cu.
+QUANTIZE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+GEMM_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+ARGTYPES = {"tdspa_quantize_rows": QUANTIZE_ARGTYPES, "tdspa_int8_gemm": GEMM_ARGTYPES}
 
 
 @functools.cache
-def _kernel():
-    fn = build.load("quant_matmul").tdspa_quant_matmul
-    fn.argtypes = ARGTYPES
+def _entry(symbol: str):
+    fn = getattr(build.load("quant_matmul"), symbol)
+    fn.argtypes = ARGTYPES[symbol]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _check_cuda_operands(*tensors) -> None:
+    if any(t.device.type != "cuda" for t in tensors):
+        raise ValueError(f"the kernel takes CUDA tensors, got {[str(t.device) for t in tensors]}")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
+        raise ValueError("kernel takes contiguous, 16-byte aligned operands")
+
+
+def _check_k(k: int) -> None:
+    if k % 16 or not 16 <= k <= MAX_K:
+        raise ValueError(f"kernel takes K in 16..{MAX_K} (multiple of 16); got K={k}")
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def quantize_rows(x2d: torch.Tensor):
+    """The quantise pass: x2d [M, K] f32/bf16 -> (xq int8 [M, K], sx f32 [M])."""
+    if x2d.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel takes f32/bf16 x, got {x2d.dtype}")
+    _check_cuda_operands(x2d)
+    m, k = x2d.shape
+    _check_k(k)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x2d.device)
+    sx = torch.empty((m,), dtype=torch.float32, device=x2d.device)
+    if m:
+        with torch.cuda.device(x2d.device):
+            rc = _entry("tdspa_quantize_rows")(
+                x2d.data_ptr(), xq.data_ptr(), sx.data_ptr(), int(x2d.dtype == torch.bfloat16),
+                m, k, torch.cuda.current_stream(x2d.device).cuda_stream,
+            )
+        _raise_on(rc, "int8 quantise")
+    return xq, sx
+
+
+def int8_gemm(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor):
+    """The GEMM: xq int8 [M, K], sx f32 [M], wq int8 [N, K], ws f32 [N] -> [M, N] f32."""
+    if xq.dtype != torch.int8 or sx.dtype != torch.float32 or wq.dtype != torch.int8 \
+            or ws.dtype != torch.float32:
+        raise TypeError(f"kernel takes int8 xq and wq, f32 sx and ws; got {xq.dtype}, "
+                        f"{sx.dtype}, {wq.dtype}, {ws.dtype}")
+    m, k = xq.shape
+    n = wq.shape[0]
+    if sx.shape != (m,) or wq.shape != (n, k) or ws.shape != (n,):
+        raise ValueError(f"expected sx [M], wq [N, K] and ws [N] for M={m}, K={k}; got "
+                         f"{tuple(sx.shape)}, {tuple(wq.shape)}, {tuple(ws.shape)}")
+    _check_k(k)
+    if n % 8 or n == 0:
+        raise ValueError(f"kernel takes N a multiple of 8; got N={n}")
+    _check_cuda_operands(xq, sx, wq, ws)
+    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    if m == 0:
+        return out
+    sms = torch.cuda.get_device_properties(xq.device).multi_processor_count
+    bn, _, grid = _launch_shape(m, n, sms)
+    with torch.cuda.device(xq.device):
+        rc = _entry("tdspa_int8_gemm")(
+            xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
+            m, k, n, bn, grid, torch.cuda.current_stream(xq.device).cuda_stream,
+        )
+    _raise_on(rc, "int8 GEMM")
+    return out
+
+
 def launch(x2d: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
-    """One kernel launch: x2d [M, K] f32/bf16, wq [N, K] int8, ws [N] f32 -> [M, N] f32.
+    """One product: x2d [M, K] f32/bf16, wq [N, K] int8, ws [N] f32 -> [M, N] f32.
 
     Takes contiguous, 16-byte aligned CUDA operands with K a multiple of 16
     up to ``MAX_K`` and N a multiple of 8; anything else raises.
     """
-    if x2d.device.type != "cuda":
-        raise ValueError(f"the kernel takes CUDA tensors, got {x2d.device}")
-    if x2d.dtype not in (torch.float32, torch.bfloat16) or wq.dtype != torch.int8 \
-            or ws.dtype != torch.float32:
-        raise TypeError(f"kernel takes f32/bf16 x, int8 wq, f32 ws; got {x2d.dtype}, "
-                        f"{wq.dtype}, {ws.dtype}")
-    m, k = x2d.shape
-    n = wq.shape[0]
-    if wq.shape != (n, k) or ws.shape != (n,):
-        raise ValueError(f"expected wq [N, K] and ws [N] for K={k}; got {tuple(wq.shape)}, "
-                         f"{tuple(ws.shape)}")
-    if k % 16 or not 16 <= k <= MAX_K or n % 8 or n == 0:
-        raise ValueError(f"kernel takes K in 16..{MAX_K} (multiple of 16) and N a multiple "
-                         f"of 8; got K={k}, N={n}")
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (x2d, wq, ws)):
-        raise ValueError("kernel takes contiguous, 16-byte aligned operands")
+    if x2d.dim() != 2 or wq.dim() != 2 or wq.shape[1] != x2d.shape[1]:
+        raise ValueError(f"expected x2d [M, K] and wq [N, K]; got {tuple(x2d.shape)}, "
+                         f"{tuple(wq.shape)}")
     if torch.is_grad_enabled() and x2d.requires_grad:
         raise NotImplementedError("quant_matmul is forward-only (inference)")
-    out = torch.empty((m, n), dtype=torch.float32, device=x2d.device)
-    if m == 0:
-        return out
-    sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
-    splits, per_split = _launch_shape(m, n, sms)
-    with torch.cuda.device(x2d.device):
-        rc = _kernel()(
-            x2d.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            int(x2d.dtype == torch.bfloat16), m, k, n, splits, per_split,
-            torch.cuda.current_stream(x2d.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error {rc}")
-    return out
+    return int8_gemm(*quantize_rows(x2d), wq, ws)
 
 
 def quant_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ w [K, N] through dynamic int8 -> [..., N] f32.
 
-    CUDA tensors: the weight is quantised per column (``quantize_weight``)
-    and the kernel launches. CPU tensors run ``quant_matmul_reference``.
+    CUDA tensors: the weight's int8 operands come from
+    ``cached_quantized_weight`` and the kernels launch. CPU tensors run
+    ``quant_matmul_reference``.
     """
     if w.dim() != 2 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"expected x [..., K] and w [K, N]; got {tuple(x.shape)}, "
@@ -159,7 +235,7 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     k, n = w.shape
-    wq, ws = quantize_weight(w)
+    wq, ws = cached_quantized_weight(w)
     out = launch(x.reshape(-1, k).contiguous(), wq, ws)
     quant_matmul.launches += 1
     return out.reshape(x.shape[:-1] + (n,))

@@ -74,6 +74,34 @@ def test_cpu_dispatch_launches_nothing_and_checks_shapes():
         kbl.bilinear_sample(torch.from_numpy(grid), torch.from_numpy(coords[:, :2]))
 
 
+@pytest.mark.parametrize("margin", [0.0, 4.0])
+def test_grid_sample_with_border_padding_is_the_reference_function(margin):
+    """``grid_sample(mode="bilinear", padding_mode="border",
+    align_corners=True)`` equals ``bilinear_sample_reference`` inside the
+    grid and beyond every edge: a corner clamped on its own, with weights
+    from the unclamped floor, gives the edge value that clamping the
+    coordinate gives. This makes it the kernel's library yardstick (timed
+    only, in chip_smoke.py). grid_sample runs in f64 here, so that the
+    normalised coordinate's round trip does not move a point; tolerance
+    1e-5 for the f32 reference's own rounding of O(1) values."""
+    grid, coords = _inputs(3, frames=5, height=36, width=36, channels=16, points=300,
+                           margin=margin)
+    tgrid, tcoords = torch.from_numpy(grid), torch.from_numpy(coords)
+    want = kbl.bilinear_sample_reference(tgrid, tcoords)
+    frames, height, width, _ = grid.shape
+    c64 = tcoords.double()
+    g = torch.stack([c64[..., 0] * (2.0 / (width - 1)) - 1.0,
+                     c64[..., 1] * (2.0 / (height - 1)) - 1.0], dim=-1)
+    got = torch.nn.functional.grid_sample(
+        tgrid.double().permute(0, 3, 1, 2), g.permute(1, 0, 2)[:, None], mode="bilinear",
+        padding_mode="border", align_corners=True)  # [T, C, 1, N]
+    got = got[:, :, 0].permute(2, 0, 1)  # [N, T, C]
+    if margin:
+        x, y = coords[..., 0], coords[..., 1]
+        assert (x < 0).any() and (x > width - 1).any() and (y < 0).any() and (y > height - 1).any()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+
+
 def test_ctypes_signature_matches_the_cuda_entry_point():
     """The kernel loads only on a GPU host; its C signature is checked here."""
     src = (Path(kbl.build.CSRC) / "bilinear.cu").read_text()

@@ -86,10 +86,13 @@ def test_tiny_model_runs_the_kernel_and_matches_the_plain_path(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 1297, 1297, 12), (2, 1370, 1370, 12), (2, 77, 1000, 4),
-                                   (3, 200, 129, 2), (1, 1, 1, 1)])
+                                   (3, 200, 129, 2), (1, 1, 1, 1), (2, 300, 77, 3),
+                                   (1, 128, 256, 2)])
 def test_vit_kernel_matches_plain_version(cuda_device, shape):
-    """The maskless ViT kernel (head width 64): the main-path frames, K not a
-    multiple of its 64-key tile, S not a multiple of its 128-row block."""
+    """The maskless ViT kernel (head width 64): the main-path frames, S and K
+    not multiples of its 128-row block and 128-key tile, K below one tile,
+    and both exact multiples. Rows past a frame's S or K must not see the
+    next frame's tokens."""
     from tdspa_torch.kernels.attention import vit_attention
 
     batch, seq, kv_len, heads = shape
@@ -215,10 +218,14 @@ def test_tracker_on_the_gpu_launches_both_kernels(cuda_device):
 @pytest.mark.parametrize("shape", [(2048, 384, 768, torch.float32),
                                    (1111, 1152, 2048, torch.float32),
                                    (4100, 1536, 384, torch.bfloat16), (3, 16, 8, torch.float32),
-                                   (70, 48, 40, torch.bfloat16)])
+                                   (70, 48, 40, torch.bfloat16), (257, 3072, 200, torch.float32),
+                                   (4100, 256, 520, torch.float32)])
 def test_quant_kernel_equals_plain_version(cuda_device, shape):
     """Bit for bit: the same quantised values and exact integer sums, then the
-    same two f32 products (as in chip_smoke.py)."""
+    same two f32 products (as in chip_smoke.py). M not a multiple of the
+    128-row tile, K = 16 (less than one 128-byte stage) and K = 3072, N = 8
+    and N not a multiple of the tile width at BN = 64 (200) and BN = 128
+    (520 with 33 row tiles)."""
     from tdspa_torch.kernels import quant_matmul as qmm
 
     m, k, n, dtype = shape
@@ -230,6 +237,9 @@ def test_quant_kernel_equals_plain_version(cuda_device, shape):
     torch.cuda.synchronize()
     assert qmm.quant_matmul.launches == before + 1
     assert torch.equal(got, qmm.quant_matmul_reference(x, w))
+    xq, sx = qmm.quantize_rows(x)  # the quantise pass alone: the plain quantiser's values
+    want_q, want_s = qmm.dynamic_int8(x.float(), -1)
+    assert torch.equal(xq, want_q) and torch.equal(sx, want_s.reshape(-1))
     with pytest.raises(ValueError, match="multiple of 16"):
         qmm.quant_matmul(x[:, :8].contiguous(), w[:8])
 

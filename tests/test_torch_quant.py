@@ -102,14 +102,46 @@ def test_quantize_weight_is_the_transposed_per_column_quantiser():
     np.testing.assert_array_equal(ws.numpy(), np.asarray(s)[0])
 
 
-@pytest.mark.parametrize("m,n,tiles", [(309248, 768, (1, 6)), (128, 512, (4, 1)),
-                                       (2048, 768, (6, 1)), (66048, 1536, (1, 12)),
-                                       (1, 24, (1, 1))])
-def test_launch_shape_covers_every_n_tile(m, n, tiles):
-    splits, per_split = kq._launch_shape(m, n, sms=132)
-    assert (splits, per_split) == tiles
-    n_tiles = -(-n // kq.COLS)
-    assert splits * per_split >= n_tiles and (splits - 1) * per_split < n_tiles
+@pytest.mark.parametrize("m,n,want", [
+    (309248, 768, (128, 14496, 132)),  # input_qkv: every SM busy with 128-wide tiles
+    (309248, 384, (128, 7248, 132)),  # input_out / input_mlp_out
+    (66048, 1536, (128, 6192, 132)),  # readout_mlp_in
+    (1111, 2048, (128, 144, 132)),  # the ragged M: 9 row tiles x 16 still fill the card
+    (2048, 768, (64, 192, 132)),  # latents_cross_kv: 96 tiles at 128 wide, so 64
+    (128, 512, (64, 8, 8)),  # latents_out: one row tile, launch-bound
+    (3, 8, (64, 1, 1)),  # N = 8: one tile, masked
+])
+def test_launch_shape_picks_bn_and_covers_every_tile(m, n, want):
+    bn, tiles, grid = kq._launch_shape(m, n, sms=132)
+    assert (bn, tiles, grid) == want and bn in kq.BN_CHOICES
+    m_tiles = -(-m // kq.ROWS)
+    assert tiles == m_tiles * -(-n // bn) and tiles * kq.ROWS * bn >= m * n
+    assert 1 <= grid <= min(tiles, 132)  # the persistent grid: no block without a tile
+
+
+def test_cached_quantized_weight_follows_the_tensor():
+    """The cache returns ``quantize_weight``'s integers, quantises anew after
+    an in-place update, and never lends one tensor's entry to another."""
+    _, w = _operands(1, 48, 40, seed=6)
+    w = torch.from_numpy(w)
+    first = kq.cached_quantized_weight(w)
+    assert all(torch.equal(a, b) for a, b in zip(first, kq.quantize_weight(w)))
+    assert kq.cached_quantized_weight(w)[0] is first[0]  # served from the cache
+    with torch.no_grad():
+        w.add_(0.5 * torch.linspace(-1.0, 1.0, 40))
+    updated = kq.cached_quantized_weight(w)
+    want = kq.quantize_weight(w)
+    assert all(torch.equal(a, b) for a, b in zip(updated, want))
+    assert not torch.equal(updated[1], first[1])
+    other = w.clone()
+    with torch.no_grad():
+        other.mul_(2.0)
+    doubled = kq.cached_quantized_weight(other)
+    assert torch.equal(doubled[0], updated[0]) and torch.equal(doubled[1], 2 * updated[1])
+    assert doubled[1] is not updated[1]
+    view = w.reshape(40, 48)  # another shape of the same storage: its own entry
+    assert kq.cached_quantized_weight(view)[0].shape == (48, 40)
+    assert kq.cached_quantized_weight(w)[0] is updated[0]
 
 
 @pytest.mark.parametrize("features,axis", [(8, -1), ((2, 8), -1), (16, (-2, -1))])
@@ -167,9 +199,11 @@ def test_tiny_quantized_model_matches_jax_f32():
 
 
 def test_ctypes_signature_matches_the_cuda_entry_point():
-    """The kernel loads only on a GPU host; its C signature is checked here."""
+    """The kernels load only on a GPU host; their C signatures are checked here."""
     src = (Path(kq.build.CSRC) / "quant_matmul.cu").read_text()
-    decl = re.search(r'extern "C" int tdspa_quant_matmul\(([^)]*)\)', src).group(1)
-    kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in decl.split(",")]
-    assert kinds == kq.ARGTYPES
+    for symbol, argtypes in kq.ARGTYPES.items():
+        decl = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src).group(1)
+        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in decl.split(",")]
+        assert kinds == argtypes, symbol
+    assert set(re.findall(r'extern "C" int (\w+)\(', src)) == set(kq.ARGTYPES)
     assert "quant_matmul" in kq.build.KERNELS
