@@ -19,8 +19,10 @@ and the script exits non-zero:
    (``attention_reference``) at the five attention shapes of the 3DSPA
    forward, in both output dtypes, plus edge cases; each with its error
    against the stated tolerance, the kernel's time, the plain version's,
-   ``scaled_dot_product_attention``'s (timed only, as a yardstick) and the
-   bound (the larger of bytes over 3.35 TB/s and flops over 989 TFLOP/s).
+   ``scaled_dot_product_attention``'s (timed only, as a yardstick), the
+   bound (the larger of bytes over 3.35 TB/s and flops over 989 TFLOP/s)
+   and the kernel's work plan; then one forward's totals with f32 and with
+   bf16 output beside SDPA's.
    vit_attention_kernel: the same for the maskless ViT kernel
    (``csrc/vit_attention.cu``) at the DINO and depth backbones' frames,
    (8,1297,12,64) and (8,1370,12,64), and a ragged (2,77|1000,12,64).
@@ -67,8 +69,9 @@ and the script exits non-zero:
    and a bf16 matmul timed only, as yardsticks.
 12. block_kernel: the fused block (``csrc/block.cu``) against
    ``block_reference`` at the readout [512,129,1280] (MLP 1536) and
-   decompress [1,128,1152] (MLP 2048) layers, with the port's unfused layer
-   (what ``fused_block=False`` runs) timed beside it.
+   decompress [1,128,1152] (MLP 2048) layers, each of its seven CUDA
+   kernels timed alone, and the port's unfused layer (what
+   ``fused_block=False`` runs) timed beside it.
 13. bilinear_kernel: the bilinear kernel (``csrc/bilinear.cu``) against the
    plain gather on the tail's DINO grid [150,36,36,768] and depth maps
    [150,512,512,1] at 4096 tracks: equal bit for bit; ``grid_sample`` with
@@ -120,14 +123,17 @@ from tdspa_torch.kernels.attention import (
     attention_reference,
     fused_masked_attention,
     vit_attention,
+    work_plan,
 )
 from tdspa_torch.kernels.bilinear import bilinear_sample as bilinear_kernel
 from tdspa_torch.kernels.bilinear import bilinear_sample_reference
 from tdspa_torch.kernels.block import (
     KERNELS_PER_CALL,
+    STAGES as BLOCK_STAGES,
     _operands,
     block_reference,
     fused_transformer_block,
+    launch_stages as block_launch_stages,
 )
 from tdspa_torch.kernels.matcher import cost_patches_multi, cost_patches_reference
 from tdspa_torch.models import TrackAutoEncoder3D
@@ -457,9 +463,10 @@ def compare_attention(phase, kernel, fields, q, k, v, mask, library_ms) -> dict:
     return rows
 
 
-def add_per_run(totals: dict, rows: dict, count: int) -> None:
-    """Add ``count`` launches' worth of a shape's f32-output row to ``totals``."""
-    row, bytes_ms, flops_ms = rows[torch.float32]
+def add_per_run(totals: dict, rows: dict, count: int, out_dtype=torch.float32) -> None:
+    """Add ``count`` launches' worth of a shape's row (f32 output unless
+    ``out_dtype`` says otherwise) to ``totals``."""
+    row, bytes_ms, flops_ms = rows[out_dtype]
     totals["max_abs_err"] = max(totals["max_abs_err"], row["max_abs_err"])
     for key, value in (("ms", row["ms"]), ("plain_ms", row["plain_ms"]),
                        ("library_ms", row["library_ms"]), ("bytes_ms", bytes_ms),
@@ -474,7 +481,7 @@ def new_totals() -> dict:
 
 def phase_kernel() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    totals = new_totals()
+    totals, bf16_totals = new_totals(), new_totals()
     for name, batch, seq, kv_len, heads, depth, masked, per_forward in MAIN_PATH_SHAPES + EDGE_SHAPES:
         q, k, v, mask = attention_inputs(gen, batch, seq, kv_len, heads, depth, masked)
         # SDPA's layout is [B, H, S, D]; an additive mask keeps fully masked
@@ -489,11 +496,17 @@ def phase_kernel() -> dict:
             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=add_mask),
             iters=10,
         )
+        plan = work_plan(batch, seq, kv_len, heads, SMS)
         rows = compare_attention("kernel", fused_masked_attention,
-                                 dict(shape=name, masked=bool(masked)), q, k, v, mask, library_ms)
+                                 dict(shape=name, masked=bool(masked), work_items=plan["work"],
+                                      grid=plan["grid"], key_chunks=plan["chunks"],
+                                      cuda_kernels_per_call=plan["cuda_kernels"]),
+                                 q, k, v, mask, library_ms)
         if per_forward:
-            # One forward's attention work (the pipeline's residual stream is f32).
+            # One forward's attention work (the pipeline's residual stream is f32;
+            # the bf16-output total is the like-for-like comparison with SDPA).
             add_per_run(totals, rows, per_forward)
+            add_per_run(bf16_totals, rows, per_forward, torch.bfloat16)
         if name == "fully_masked_rows":
             # Item 0 attends to nothing: the kernel returns the mean of its values.
             mean_v = v[0].float().mean(dim=0)  # [H, D]
@@ -504,6 +517,12 @@ def phase_kernel() -> dict:
                 raise AssertionError(f"fully masked rows are not the mean of V: {dev}")
         del q, k, v, mask, add_mask, qt, kt, vt
         torch.cuda.empty_cache()
+    emit("kernel_totals", per="one forward: the 19 launches at their main-path shapes",
+         f32_out_ms=totals["ms"], bf16_out_ms=bf16_totals["ms"], sdpa_ms=totals["library_ms"],
+         f32_out_bound_ms=max(totals["bytes_ms"], totals["flops_ms"]),
+         bf16_out_bound_ms=max(bf16_totals["bytes_ms"], bf16_totals["flops_ms"]),
+         max_abs_err=max(totals["max_abs_err"], bf16_totals["max_abs_err"]))
+    totals["bf16_out_ms"] = bf16_totals["ms"]
     return totals
 
 
@@ -1131,6 +1150,12 @@ def phase_block_kernel() -> dict:
             scale = want.abs().max().item()
             del got, want, diff
             ms = cuda_ms(lambda: fused_transformer_block(x, block, BLOCK_HEADS), iters=5)
+            # Each of the seven CUDA kernels alone, on the scratch of a whole call.
+            _, bufs = block_launch_stages(x, ops, BLOCK_HEADS, torch.float32)
+            stage_ms = {stage: cuda_ms(lambda i=i: block_launch_stages(
+                x, ops, BLOCK_HEADS, torch.float32, 1 << i, bufs), iters=5)
+                for i, stage in enumerate(BLOCK_STAGES)}
+            del bufs
             plain_ms = cuda_ms(lambda: block_reference(x, ops, BLOCK_HEADS), iters=2)
             block.fused_block = False
             unfused_ms = cuda_ms(lambda: block(x), iters=5)
@@ -1142,7 +1167,8 @@ def phase_block_kernel() -> dict:
         row = dict(shape=name, x=[items, seq, width], mlp=mlp, heads=BLOCK_HEADS,
                    head_dim=BLOCK_QKV // BLOCK_HEADS, per_forward=per_forward,
                    cuda_kernels_per_call=KERNELS_PER_CALL, max_abs_err=err, mean_abs_err=mean_err,
-                   ref_max_abs=scale, atol=BLOCK_ATOL, finite=finite, ms=ms, plain_ms=plain_ms,
+                   ref_max_abs=scale, atol=BLOCK_ATOL, finite=finite, ms=ms, stage_ms=stage_ms,
+                   plain_ms=plain_ms,
                    unfused_ms=unfused_ms, library_ms=None,
                    library="no single PyTorch call computes a whole block",
                    bound_ms=bound_ms, bound_by="bytes" if bytes_ms >= flops_ms else "operations",
@@ -1154,6 +1180,9 @@ def phase_block_kernel() -> dict:
         for key, value in (("ms", ms), ("plain_ms", plain_ms), ("unfused_ms", unfused_ms),
                            ("bytes_ms", bytes_ms), ("flops_ms", flops_ms)):
             totals[key] += per_forward * value
+        for stage, value in stage_ms.items():
+            totals.setdefault("stage_ms", {}).setdefault(stage, 0.0)
+            totals["stage_ms"][stage] += per_forward * value
         del block, x, ops
         torch.cuda.empty_cache()
     totals["library_ms"] = None
@@ -1287,7 +1316,7 @@ def phase_serving(path, knob: str, profile: bool = False) -> dict:
 
 KERNEL_CLASSES = (  # (class, substrings of a device kernel's name), first match wins
     ("vit_attention", ("vit_attention_kernel",)),
-    ("attention", ("attention_fwd_kernel",)),
+    ("attention", ("masked_attention_kernel", "merge_chunks_kernel")),
     ("quant_matmul", ("int8_gemm_kernel", "quantize_rows_kernel")),
     ("block", ("layernorm_kernel", "gemm_kernel<", "attention_kernel<")),
     ("bilinear", ("bilinear_kernel",)),
@@ -1383,6 +1412,7 @@ def main(argv: list[str]) -> int:
         "bound_ms": max(totals["bytes_ms"], totals["flops_ms"]),
         "bound_by": bound_by,
         "library_ms": totals["library_ms"],
+        "bf16_out_ms": totals["bf16_out_ms"],
         "per": "one forward: the 19 launches at their main-path shapes, f32 output",
     }]
     main_lk = lk["pipeline"]
@@ -1469,6 +1499,7 @@ def main(argv: list[str]) -> int:
         else "operations",
         "library_ms": None,
         "unfused_ms": block_totals["unfused_ms"],
+        "stage_ms": block_totals["stage_ms"],
         "cuda_kernels_per_call": KERNELS_PER_CALL,
         "per": (f"one fused-block forward: {BLOCK_LAUNCHES} layers (4 readout, 4 decompress), "
                 f"f32 residual; launches counted over {RUNS} pipeline_fused_block runs"),

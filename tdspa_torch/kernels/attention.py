@@ -9,7 +9,10 @@ Replaces the TPU kernels of ``tdspa/kernels/attention.py``:
   with an f32 online softmax, so the TPU's VMEM-fit dispatch
   (``fused_attention_fits``, ``_pick_kv_block``, ``_pick_tile``) has no
   counterpart. Device-memory bytes bound it on an H100 (see the source's
-  note); it keeps the [S, K] logits and probabilities on chip.
+  note); it keeps the [S, K] logits and probabilities on chip, and its
+  persistent blocks keep TMA loads in flight ahead of three ``wgmma``
+  warpgroups. ``work_plan`` says how a call is divided; a small batch over
+  many keys runs as two CUDA kernels (key chunks, then their merge).
 * in the DINOv2 and VDA ViTs, ``_flash_perhead`` /
   ``_mha_flash_perhead_kernel`` (maskless, about 1.3k tokens per frame,
   head width 64): ``tdspa_torch/csrc/vit_attention.cu`` (``vit_attention``),
@@ -78,24 +81,37 @@ def _check(q, k, v, key_mask, out_dtype):
         raise ValueError(f"q, k, v and key_mask lie on different devices: {devices}")
 
 
-def _launch_shape(batch: int, seq: int, heads: int, sms: int) -> tuple[int, int]:
-    """(query blocks per (item, head), warps per block).
+QUERY_ROWS = 192  # query rows per work item of csrc/attention.cu (three warpgroups of 64)
+KEY_TILE = 64  # keys per ring stage
+SPLIT_MIN_TILES = 4  # split the keys only when an item walks at least this many tiles
 
-    A warp owns 16 query rows and a block at most 8 warps. Blocks that share
-    an (item, head) share nothing, so a large batch gets as few query
-    blocks as fit the rows (K/V staged once per 8 warps); a small batch
-    splits its rows over more blocks, down to one warp each, to reach about
-    two blocks per SM.
+
+def work_plan(batch: int, seq: int, kv_len: int, heads: int, sms: int) -> dict:
+    """How ``csrc/attention.cu`` divides one call: work items are (item,
+    head, 192 query rows, key chunk), walked by ``grid`` persistent blocks.
+
+    The keys stay whole (one chunk) unless the (item, head, row tile) items
+    are fewer than the SMs and each walks at least ``SPLIT_MIN_TILES`` key
+    tiles (the B = 1 cross-attention over 2048 keys): then they are split
+    into chunks of ``chunk_tiles`` tiles so that the items fill the card,
+    and a second CUDA kernel merges the chunks (``cuda_kernels`` = 2).
     """
-    row_tiles = -(-seq // 16)
-    q_blocks = max(-(-row_tiles // 8), min(row_tiles, -(-2 * sms // (batch * heads))))
-    return q_blocks, -(-row_tiles // q_blocks)
+    row_tiles = -(-seq // QUERY_ROWS)
+    tiles = -(-kv_len // KEY_TILE)
+    items = batch * heads * row_tiles
+    chunk_tiles = tiles
+    if items < sms and tiles >= SPLIT_MIN_TILES:
+        chunk_tiles = -(-tiles // -(-sms // items))
+    chunks = -(-tiles // chunk_tiles)
+    work = items * chunks
+    return {"row_tiles": row_tiles, "chunk_tiles": chunk_tiles, "chunks": chunks, "work": work,
+            "grid": min(work, sms), "cuda_kernels": 1 if chunks == 1 else 2}
 
 
-# tdspa_attention_forward(q, k, v, mask, out, out_bf16, B, S, K, H, D,
-#                         q_blocks, warps, scale, stream) in csrc/attention.cu.
+# tdspa_attention_forward(q, k, v, mask, out, part_o, part_ml, out_bf16, B, S, K, H, D,
+#                         chunk_tiles, grid, scale, stream) in csrc/attention.cu.
 ARGTYPES = (
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 )
 
 
@@ -131,7 +147,7 @@ def fused_masked_attention(q, k, v, key_mask=None, out_dtype=torch.float32):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "fused_masked_attention is forward-only; the backward comes with "
-            "the training slice (ROADMAP.md queue 1, item 10)"
+            "the training slice (ROADMAP.md queue 2, item 8; training is queue 1, item 5)"
         )
     if key_mask is not None:
         if key_mask.dtype != torch.bool:
@@ -141,14 +157,20 @@ def fused_masked_attention(q, k, v, key_mask=None, out_dtype=torch.float32):
     if out.numel() == 0:
         return out
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    q_blocks, warps = _launch_shape(batch, seq, heads, sms)
+    plan = work_plan(batch, seq, kv_len, heads, sms)
+    part_o = part_ml = None
+    if plan["chunks"] > 1:  # the key chunks' partial (O, m, l), merged by the second kernel
+        rows = plan["chunks"] * batch * seq * heads
+        part_o = torch.empty((rows, depth), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((rows, 2), dtype=torch.float32, device=q.device)
     fn = _kernel()
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             key_mask.data_ptr() if key_mask is not None else None,
-            out.data_ptr(), int(out_dtype == torch.bfloat16),
-            batch, seq, kv_len, heads, depth, q_blocks, warps,
+            out.data_ptr(), None if part_o is None else part_o.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(), int(out_dtype == torch.bfloat16),
+            batch, seq, kv_len, heads, depth, plan["chunk_tiles"], plan["grid"],
             1.0 / math.sqrt(depth), torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
@@ -199,8 +221,8 @@ def vit_attention(q, k, v, out_dtype=torch.float32):
         raise ValueError(f"kernel takes D = {VIT_HEAD} and S, K > 0; got {tuple(q.shape)}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "vit_attention is forward-only; the backward comes with the "
-            "training slice (ROADMAP.md queue 1, item 10)"
+            "vit_attention is forward-only; the backward comes with the training "
+            "slice (ROADMAP.md queue 2, item 8; training is queue 1, item 5)"
         )
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     if out.numel() == 0:

@@ -16,12 +16,13 @@ products with f32 accumulation, two-pass f32 LayerNorm statistics, and f32
 residual sums. The TPU body keeps a whole item and the layer's weights in
 VMEM; an H100 SM holds 228 KB of shared memory, less than one readout item
 (129 x 1280 bf16 is 330 KB). So ``tdspa_torch/csrc/block.cu`` runs the layer
-as ``KERNELS_PER_CALL`` launches of its own kernels (LayerNorm, a Q/K/V GEMM
-whose N tile is one head so that the RMSNorm sees the head's whole row, an
-attention stage per (item, head) with all keys in shared memory, the out-
-projection GEMM with bias and residual, LayerNorm, the MLP GEMMs with bias
-and GELU or bias and residual). One wrapper call counts as one block
-launch (``fused_transformer_block.launches``).
+as ``KERNELS_PER_CALL`` launches of its own kernels (``STAGES``: LayerNorm,
+a Q/K/V GEMM whose N tile holds whole heads so that the RMSNorm sees each
+head's row, an attention stage per (item, head) with all keys in shared
+memory, the out-projection GEMM with bias and residual, LayerNorm, the MLP
+GEMMs with bias and GELU or bias and residual). The four GEMMs are one
+persistent TMA + ``wgmma`` kernel with four epilogues. One wrapper call
+counts as one block launch (``fused_transformer_block.launches``).
 
 The kernel takes a head width in ``HEAD_DIMS``, at most ``MAX_SEQ`` tokens
 and widths that are multiples of 8 (``kernel_takes``); the model routes a
@@ -42,7 +43,9 @@ from tdspa_torch.kernels import build
 
 HEAD_DIMS = (32, 64, 96, 128)
 MAX_SEQ = 256  # all keys of an (item, head) stay in shared memory
-KERNELS_PER_CALL = 7  # LN1, Q/K/V, attention, out-proj, LN2, MLP_in, MLP_out
+STAGES = ("ln1", "qkv", "attention", "out_proj", "ln2", "mlp_in", "mlp_out")  # one CUDA kernel each
+KERNELS_PER_CALL = len(STAGES)
+ALL_STAGES = (1 << KERNELS_PER_CALL) - 1
 NORM_EPS = 1e-6
 OPERANDS = ("g1", "wqkv_t", "sq", "sk", "wo_t", "bo", "g2", "w1_t", "b1", "w2_t", "b2")
 
@@ -144,9 +147,9 @@ def block_reference(x, ops, heads: int, out_dtype=torch.float32):
 
 
 # tdspa_block_forward(x, out, g1, wqkv_t, sq, sk, wo_t, bo, g2, w1_t, b1, w2_t, b2,
-#                     xb, ln1, q, k, v, att, y, ln2, hid,
-#                     x_bf16, out_bf16, N, S, C, H, DH, MLP, scale, stream) in csrc/block.cu.
-ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+#                     xb, ln1, qkv, att, y, ln2, hid, x_bf16, out_bf16, N, S, C, H, DH, MLP,
+#                     stages, sms, scale, stream) in csrc/block.cu.
+ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
 
 
 @functools.cache
@@ -192,29 +195,45 @@ def fused_transformer_block(x, block, heads: int, out_dtype=torch.float32):
         raise ValueError("x and the block's parameters lie on different devices")
     lead = x.shape[:-2]
     xf = x.reshape(-1, seq, width).contiguous()
-    items, rows = xf.shape[0], xf.shape[0] * seq
-    out = torch.empty(xf.shape, dtype=out_dtype, device=x.device)
+    out, _ = launch_stages(xf, ops, heads, out_dtype)
+    if out.numel():
+        fused_transformer_block.launches += 1
+    return out.reshape(lead + (seq, width))
+
+
+def launch_stages(xf, ops, heads: int, out_dtype, stages: int = ALL_STAGES, bufs=None):
+    """Launch the kernel's stages whose bit ``1 << i`` (``STAGES[i]``) is set
+    in ``stages``, on contiguous CUDA x [N, S, C] and the flattened operands;
+    ``bufs`` are the scratch tensors of an earlier call (new ones when None).
+    Returns (out, bufs). ``fused_transformer_block`` runs all seven; one
+    alone times that stage."""
+    items, seq, width = xf.shape
+    hd = ops["wqkv_t"].shape[0] // 3
+    mlp = ops["w1_t"].shape[0]
+    rows = items * seq
+    out = torch.empty(xf.shape, dtype=out_dtype, device=xf.device)
     if rows == 0:
-        return out.reshape(lead + (seq, width))
+        return out, bufs
 
     def scratch(cols, dtype=torch.bfloat16):
-        return torch.empty((rows, cols), dtype=dtype, device=x.device)
+        return torch.empty((rows, cols), dtype=dtype, device=xf.device)
 
-    xb = scratch(width) if x.dtype == torch.float32 else xf
-    bufs = [xb, scratch(width), scratch(hd), scratch(hd), scratch(hd), scratch(hd),
-            scratch(width, torch.float32), scratch(width), scratch(mlp)]
-    with torch.cuda.device(x.device):
+    if bufs is None:
+        xb = scratch(width) if xf.dtype == torch.float32 else xf
+        bufs = [xb, scratch(width), scratch(3 * hd), scratch(hd), scratch(width, torch.float32),
+                scratch(width), scratch(mlp)]
+    sms = torch.cuda.get_device_properties(xf.device).multi_processor_count
+    with torch.cuda.device(xf.device):
         rc = _kernel()(
             xf.data_ptr(), out.data_ptr(), *(ops[name].data_ptr() for name in OPERANDS),
             *(b.data_ptr() for b in bufs),
-            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            items, seq, width, heads, head_dim, mlp, 1.0 / math.sqrt(head_dim),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            int(xf.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            items, seq, width, heads, hd // heads, mlp, stages, sms,
+            1.0 / math.sqrt(hd // heads), torch.cuda.current_stream(xf.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"block kernel launch failed: CUDA error {rc}")
-    fused_transformer_block.launches += 1
-    return out.reshape(lead + (seq, width))
+    return out, bufs
 
 
 fused_transformer_block.launches = 0

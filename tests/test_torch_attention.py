@@ -154,14 +154,125 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 @pytest.mark.parametrize(
-    "batch,seq,heads",
-    [(2048, 151, 8), (1, 128, 8), (512, 129, 8), (2, 1297, 12), (1, 1, 1), (7, 16, 3)],
+    "batch,seq,kv_len,heads",
+    [(2048, 151, 151, 8), (1, 128, 128, 8), (512, 129, 129, 8), (2, 1297, 1297, 12), (1, 1, 1, 1),
+     (7, 16, 16, 3), (1, 128, 2048, 8)],
 )
-def test_launch_shape_covers_every_query_row(batch, seq, heads):
-    q_blocks, warps = ka._launch_shape(batch, seq, heads, sms=132)
-    assert 1 <= warps <= 8 and q_blocks >= 1
-    assert q_blocks * warps * 16 >= seq
-    assert (q_blocks - 1) * warps * 16 < seq  # no block without a row
+def test_launch_shape_covers_every_query_row(batch, seq, kv_len, heads):
+    """``work_plan`` (the successor of the mma.sync kernel's launch shape):
+    the row tiles cover S with no empty tile, the chunks cover the key tiles
+    with no empty chunk, and the persistent grid has no idle block."""
+    plan = ka.work_plan(batch, seq, kv_len, heads, sms=132)
+    tiles = -(-kv_len // ka.KEY_TILE)
+    assert plan["row_tiles"] * ka.QUERY_ROWS >= seq > (plan["row_tiles"] - 1) * ka.QUERY_ROWS
+    assert plan["chunks"] * plan["chunk_tiles"] >= tiles > (plan["chunks"] - 1) * plan["chunk_tiles"]
+    assert plan["work"] == batch * heads * plan["row_tiles"] * plan["chunks"]
+    assert 1 <= plan["grid"] == min(plan["work"], 132)
+    assert plan["cuda_kernels"] == (1 if plan["chunks"] == 1 else 2)
+
+
+# The five main-path shapes and four edge shapes of chip_smoke.py (B, S, K, H).
+PLAN_SHAPES = [(2048, 151, 151, 8), (1, 128, 128, 8), (1, 128, 2048, 8), (1, 128, 128, 8),
+               (512, 129, 129, 8), (4, 151, 151, 8), (3, 77, 1000, 8), (2, 1297, 1297, 12),
+               (1, 151, 151, 8)]
+
+
+def _work_item(w, heads, plan, seq, kv_len):
+    """Work item ``w`` as ``csrc/attention.cu``'s ``decode`` reads it (chunk
+    fastest): (b, h, query rows [r0, r1), keys [k0, k1)) clipped to S and K."""
+    chunks, row_tiles = plan["chunks"], plan["row_tiles"]
+    chunk_keys = plan["chunk_tiles"] * ka.KEY_TILE
+    c, r = w % chunks, w // chunks
+    rt, r = r % row_tiles, r // row_tiles
+    h, b = r % heads, r // heads
+    return (b, h, rt * ka.QUERY_ROWS, min(seq, (rt + 1) * ka.QUERY_ROWS), c * chunk_keys,
+            min(kv_len, (c + 1) * chunk_keys))
+
+
+@pytest.mark.parametrize("batch,seq,kv_len,heads", PLAN_SHAPES)
+def test_work_items_cover_every_row_and_key_once(batch, seq, kv_len, heads):
+    """Every (item, head, query row, key) lies in exactly one work item, as the
+    kernel decodes them; the B = 1 cross-attention over 2048 keys is split so
+    that its items fill the SMs."""
+    plan = ka.work_plan(batch, seq, kv_len, heads, sms=132)
+    items = np.array([_work_item(w, heads, plan, seq, kv_len) for w in range(plan["work"])])
+    b, h, r0, r1, k0, k1 = items.T
+    assert (r0 < r1).all() and (k0 < k1).all() and (r1 <= seq).all() and (k1 <= kv_len).all()
+    # Distinct rectangles whose areas sum to S x K per (item, head): a partition.
+    assert len({tuple(row) for row in items}) == len(items)
+    area = np.zeros((batch, heads), np.int64)
+    np.add.at(area, (b, h), (r1 - r0) * (k1 - k0))
+    assert (area == seq * kv_len).all()
+    rows = {(int(x), int(y)) for x, y in zip(r0, r1)}
+    keys = {(int(x), int(y)) for x, y in zip(k0, k1)}
+    assert sum(y - x for x, y in rows) == seq and sum(y - x for x, y in keys) == kv_len
+    if (batch, kv_len) == (1, 2048):
+        assert plan["chunks"] > 1 and plan["work"] <= 132
+
+
+def _kernel_model(q, k, v, mask, chunk_tiles, tile=64):
+    """The kernel's arithmetic in plain PyTorch: per key chunk of
+    ``chunk_tiles`` 64-key tiles an f32 online softmax on logits in log2
+    units (the product times scale log2(e); masked logits finfo(f32).min, the
+    running max starting there; P = 2^(x - max) rounded to bf16 before P.V),
+    then the chunks merged as O = sum 2^(m_c - M) O_c / sum 2^(m_c - M) l_c."""
+    fill = torch.finfo(torch.float32).min
+    q, k, v = (torch.as_tensor(x).float() for x in (q, k, v))
+    batch, seq, heads, depth = q.shape
+    kv_len = k.shape[1]
+    attend = (torch.ones((batch, kv_len), dtype=torch.bool) if mask is None
+              else torch.as_tensor(mask) != 0)
+    parts = []
+    for c0 in range(0, kv_len, chunk_tiles * tile):
+        m = torch.full((batch, heads, seq), fill)
+        l = torch.zeros((batch, heads, seq))
+        o = torch.zeros((batch, heads, seq, depth))
+        for t0 in range(c0, min(kv_len, c0 + chunk_tiles * tile), tile):
+            t1 = min(kv_len, t0 + tile)  # keys past K are left out by index
+            s = torch.einsum("bqhd,bkhd->bhqk", q, k[:, t0:t1]) * np.float32(
+                np.float32(1.0 / np.sqrt(depth)) * np.float32(np.log2(np.e)))
+            s = s.masked_fill(~attend[:, None, None, t0:t1], fill)
+            mx = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - mx)
+            p = torch.exp2(s - mx[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(), v[:, t0:t1])
+            m = mx
+        parts.append((o, m, l))
+    big_m = torch.stack([m for _, m, _ in parts]).amax(0)
+    weights = [torch.exp2(m - big_m) for _, m, _ in parts]
+    num = sum(w[..., None] * o for w, (o, _, _) in zip(weights, parts))
+    den = sum(w * l for w, (_, _, l) in zip(weights, parts))
+    return (num / den[..., None]).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("kv_len,chunk_tiles,masked", [
+    (2048, 2, True), (2048, 2, False), (2048, 32, True), (1000, 3, True), (151, 3, True),
+])
+def test_split_merge_model_matches_the_reference(kv_len, chunk_tiles, masked):
+    """K = 2048 split into 16 chunks (or kept whole), K = 1000 with a ragged
+    last chunk and tile, and one chunk of 151 keys: the kernel's arithmetic
+    equals ``attention_reference``; item 0 (every key masked) is the mean of
+    its values in every chunking."""
+    q, k, v, mask = _inputs(8, 2, 5, kv_len, 2, 32, masked)
+    got = _kernel_model(q, k, v, mask, chunk_tiles)
+    want = attention_reference(*_torch(q, k, v, mask))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
+    if masked:
+        np.testing.assert_allclose(got[0].numpy(), np.broadcast_to(v[0].mean(axis=0), got[0].shape),
+                                   atol=1e-2)
+
+
+@pytest.mark.parametrize("chunk_tiles", [3, 16])
+def test_split_merge_model_matches_pallas_flash_body(chunk_tiles):
+    """The kernel's chunked arithmetic against ``_mha_flash_kernel`` in
+    interpret mode at K = 1000 (ragged: 16 tiles of 64, the last of 40)."""
+    q, k, v, mask = _inputs(9, 2, 6, 1000, 2, 32)
+    want = _flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+                            interpret=True, out_dtype=jnp.float32)
+    got = _kernel_model(q, k, v, mask, chunk_tiles)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
 @pytest.mark.parametrize("source,symbol,argtypes", [

@@ -216,3 +216,29 @@ def test_ctypes_signature_matches_the_cuda_entry_point():
     ]
     assert kinds == kb.ARGTYPES
     assert "block" in kb.build.KERNELS
+
+
+def test_stage_bits_cover_the_seven_launches():
+    """``launch_stages`` names the C entry point's launches by bit: each of the
+    ``KERNELS_PER_CALL`` bits gates one launch, and ``ALL_STAGES`` sets them all."""
+    src = (Path(kb.build.CSRC) / "block.cu").read_text()
+    bits = sorted({int(b) for b in re.findall(r"stages & (\d+)\)", src)})
+    assert bits == [1 << i for i in range(kb.KERNELS_PER_CALL)] == [1, 2, 4, 8, 16, 32, 64]
+    assert kb.ALL_STAGES == sum(bits) and len(kb.STAGES) == kb.KERNELS_PER_CALL
+
+
+@pytest.mark.parametrize("head_dim", kb.HEAD_DIMS)
+def test_qkv_gemm_tiles_hold_whole_heads_and_fit_shared_memory(head_dim):
+    """The Q/K/V GEMM's N tile holds whole heads (its RMSNorm epilogue needs a
+    head's row), is a wgmma width the source defines, and every GEMM
+    instantiation's shared memory fits an H100 block (232,448 bytes)."""
+    src = (Path(kb.build.CSRC) / "block.cu").read_text()
+    wide, narrow = map(int, re.search(r"BN = DH == 96 \? (\d+) : (\d+);", src).groups())
+    bn = wide if head_dim == 96 else narrow
+    assert bn % head_dim == 0 and bn <= 256
+    sm90 = (Path(kb.build.CSRC) / "sm90.cuh").read_text()
+    assert f"wgmma_bf16<{bn}>(float (&d)[{bn // 2}]" in sm90
+    stages = int(re.search(r"G_STAGES = (\d+);", src).group(1))
+    for width, out_bytes in ((bn, 2), (128, 4), (128, 2)):  # QKV; out-proj / MLP out; GELU
+        smem = 1024 + stages * (128 + width) * 128 + 2 * 64 * width * out_bytes + 2 * stages * 8
+        assert smem <= 232448, (width, out_bytes, smem)

@@ -61,6 +61,38 @@ def test_kernel_matches_plain_version(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (4, 151, 151, 8, 96, True), (4, 129, 129, 8, 8, False), (3, 1, 300, 2, 128, True),
+    (2, 151, 151, 4, 64, "rows"), (1, 128, 2048, 8, 96, "rows"), (1, 129, 1000, 8, 64, True),
+    (1, 128, 2048, 2, 128, False), (2, 5, 1000, 3, 8, "rows"),
+])
+def test_kernel_matches_plain_version_across_the_work_plan(cuda_device, shape):
+    """Head widths 8, 64, 96 and 128 (one and two 64-column boxes), S = 151,
+    129 and 1 (row tiles with a dead warpgroup), K = 2048 and 1000 split into
+    key chunks and merged by a second kernel (the ragged last chunk too), and
+    rows whose keys are all masked, whole or split: the mean of V."""
+    from tdspa_torch.kernels.attention import work_plan
+
+    batch, seq, kv_len, heads, depth, masked = shape
+    q, k, v, mask = _inputs(cuda_device, batch, seq, kv_len, heads, depth, bool(masked))
+    if masked == "rows":
+        mask[1:, : kv_len // 2] = False  # other items lose a whole chunk or more
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if batch == 1 and kv_len >= 1000:
+        assert work_plan(batch, seq, kv_len, heads, sms)["chunks"] > 1  # the split path
+    for out_dtype, rtol in ((torch.float32, 0.0), (torch.bfloat16, 2.0 ** -7)):
+        before = fused_masked_attention.launches
+        got = fused_masked_attention(q, k, v, mask, out_dtype=out_dtype)
+        assert fused_masked_attention.launches == before + 1 and got.dtype == out_dtype
+        want = attention_reference(q, k, v, mask, out_dtype=out_dtype)
+        torch.testing.assert_close(got.float(), want.float(), atol=ATOL, rtol=rtol)
+        if mask is not None:
+            mean_v = v[0].float().mean(dim=0)
+            torch.testing.assert_close(got[0].float(), mean_v.expand_as(q[0]).float(),
+                                       atol=ATOL, rtol=rtol)
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_inputs_that_require_grad(cuda_device):
     q, k, v, _ = _inputs(cuda_device, 1, 4, 4, 1, 8, False)
     with pytest.raises(NotImplementedError, match="forward-only"):
@@ -247,10 +279,13 @@ def test_quant_kernel_equals_plain_version(cuda_device, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4, 129, 1280, 8, 96, 1536), (1, 128, 1152, 8, 96, 2048),
                                    (3, 9, 64, 2, 32, 96), (2, 256, 256, 2, 128, 64),
-                                   (5, 17, 128, 4, 64, 40)])
+                                   (5, 17, 128, 4, 64, 40), (2, 33, 200, 3, 96, 328)])
 def test_block_kernel_matches_plain_version(cuda_device, shape):
     """Tolerance as in chip_smoke.py: 2e-2 abs (a bf16 rounding of an
-    intermediate may land one step away; f32 summation order)."""
+    intermediate may land one step away; f32 summation order). The readout
+    and decompress layers, a bf16 x, and widths that are not multiples of
+    the GEMM's N tile: C = 200, MLP = 40 and 328, and 3 heads of 96 (864
+    Q/K/V columns: a last tile of 96 in a 192-wide tile)."""
     from tdspa_torch.core.attention import ParallelTransformerBlock, reset_parameters
     from tdspa_torch.kernels.block import _operands, block_reference, fused_transformer_block
 
