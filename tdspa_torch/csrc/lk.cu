@@ -22,22 +22,45 @@
 // depends only on its own previous position and velocity, so the TPU's
 // sequential grid over frame pairs (positions carried in VMEM scratch)
 // becomes a loop over frame pairs inside the kernel, with position, velocity
-// and the frame-0 template windows in registers: one launch per call. Lanes
-// take the window's pixels (49 for window 7: lane k holds pixels k and
-// k + 32), and warp shuffles form the normal-matrix, residual and NCC sums.
-// In the cost volume, lanes take the candidate offsets instead.
+// and the frame-0 template in registers: one launch per call. Lanes take the
+// window's pixels (49 for window 7: lane k holds pixels k and k + 32) and a
+// window sum is the lane's partial, then a butterfly over the warp: the
+// order in which the plain version's CUDA reductions sum a 49-pixel row, so
+// the kernel's sums, and the thresholded decisions on them, equal the plain
+// version's on the card. (A point per 8-lane group with a window row per lane
+// measured 1.7x slower, with 8 warps per SM to hide each pair's chain of
+// dependent samples and sums, and its sums in another order moved 4 % of
+// the (point, frame) pairs of a 150-frame video past 0.05 px.)
+//
+// Against a kernel that clamps every corner of every sample and samples
+// every window it needs:
+//  - each sampling of the window votes once: where every corner of every
+//    lane lies inside the level (the clamps would do nothing) the warp reads
+//    the corners at one base offset with no clamps, bit for bit the clamped
+//    values; otherwise the clamped per-sample path runs;
+//  - the template side's coordinates (px + ox, py + oy) are formed once per
+//    level and reused by every Gauss-Newton step;
+//  - the step NCC's frame-t window is the fine level's template patch,
+//    already sampled at the same coordinates of the same frame; the frame-0
+//    template is centred once per launch and the tracked window once per
+//    pair for both NCCs;
+//  - in the cost volume (lanes take the candidates), an odd window puts the
+//    candidates and their taps on pixels, where a bilinear sample is the
+//    pixel itself: one load per tap, with no clamps where the candidate's
+//    patch lies inside the frame.
 //
 // What bounds it on an H100: the default configuration (3 levels, 3
 // iterations, step and template NCC, no backward pass) does about 17k f32
 // operations per point and pair against one read of the pyramids (206 MB
-// for 150 frames of 512x512): about 0.15 ms of f32 work at 67 TFLOP/s and
-// 0.06 ms of device memory, so operations bound it on paper. In practice a
-// point's work is a chain of ~12 dependent rounds of gathers per pair
-// (window samples, then a warp reduction, then the next step), so the
-// latency of L1/L2 gathers bounds it; 4096 points give 4096 warps, about 31
-// per SM, to hide that latency. Built with --fmad=false so that every
-// product and sum rounds as in the plain version (thresholded decisions sit
-// on these values).
+// for 150 frames of 512x512): about 0.22 ms of f32 work at 67 TFLOP/s and
+// 0.06 ms of device memory, so operations bound it on paper. Measured
+// (PERF.md), it runs at about 6 % of that bound, and the chain of each
+// frame pair's dependent samplings and warp sums holds it: the gathers'
+// addresses and the clamps are each a small part (the interior path saves
+// about an eighth). With at most 64 registers a thread (a few hundred
+// bytes of spills), the 4096 warps are all resident at once, about 31 per
+// SM. Built with --fmad=false so that every product and sum rounds as in
+// the plain version (thresholded decisions sit on these values).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,14 +96,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Clamp before the conversion so that a position far outside stays defined.
+__device__ __forceinline__ int to_index(float v) {
+  return static_cast<int>(fminf(fmaxf(v, -1e9f), 1e9f));
+}
+
 // ops/lk.py::_bilinear: weights from the unclamped floor, each corner index
 // clamped to the frame on its own.
 __device__ __forceinline__ float bilinear(const Image& im, float x, float y) {
   const float x0f = floorf(x), y0f = floorf(y);
   const float wx = x - x0f, wy = y - y0f;
-  // Clamp before the conversion so that a position far outside stays defined.
-  const int xi = static_cast<int>(fminf(fmaxf(x0f, -1e9f), 1e9f));
-  const int yi = static_cast<int>(fminf(fmaxf(y0f, -1e9f), 1e9f));
+  const int xi = to_index(x0f), yi = to_index(y0f);
   const int x0 = min(max(xi, 0), im.w - 1), x1 = min(max(xi + 1, 0), im.w - 1);
   const int y0 = min(max(yi, 0), im.h - 1), y1 = min(max(yi + 1, 0), im.h - 1);
   return __ldg(im.p + y0 * im.w + x0) * (1.f - wx) * (1.f - wy) +
@@ -96,59 +122,124 @@ struct Lane {
   bool valid[PL];
 };
 
+// out[j] = bilinear(im, xs[j], ys[j]) for the lane's pixels, 0 past K. One
+// vote per call: where all corners of the warp's samples lie inside the
+// level, they are read with no clamps (the clamps would change nothing).
 template <int PL>
-__device__ __forceinline__ void sample(const Image& im, float px, float py, const Lane<PL>& L,
-                                       float (&out)[PL]) {
-#pragma unroll
-  for (int j = 0; j < PL; ++j) out[j] = L.valid[j] ? bilinear(im, px + L.ox[j], py + L.oy[j]) : 0.f;
-}
-
-// ops/lk.py::_weighted_ncc over the warp's window.
-template <int PL>
-__device__ __forceinline__ float weighted_ncc(const float (&a)[PL], const float (&b)[PL],
-                                              const Lane<PL>& L) {
-  float sa = 0.f, sb = 0.f;
+__device__ __forceinline__ void sample_at(const Image& im, const float (&xs)[PL],
+                                          const float (&ys)[PL], const Lane<PL>& L,
+                                          float (&out)[PL]) {
+  float wx[PL], wy[PL];
+  int at[PL];
+  bool inside = true;
 #pragma unroll
   for (int j = 0; j < PL; ++j) {
-    sa += a[j] * L.wt[j];
-    sb += b[j] * L.wt[j];
+    const float x0f = floorf(xs[j]), y0f = floorf(ys[j]);
+    wx[j] = xs[j] - x0f;
+    wy[j] = ys[j] - y0f;
+    // The conversion saturates far outside, where the test below fails.
+    const int xi = __float2int_rz(x0f), yi = __float2int_rz(y0f);
+    at[j] = yi * im.w + xi;
+    inside = inside && (!L.valid[j] ||
+                        (static_cast<unsigned>(xi) < static_cast<unsigned>(im.w - 1) &&
+                         static_cast<unsigned>(yi) < static_cast<unsigned>(im.h - 1)));
   }
-  const float ma = warp_sum(sa), mb = warp_sum(sb);
-  float cov = 0.f, va = 0.f, vb = 0.f;
+  if (__all_sync(FULL, inside)) {
 #pragma unroll
-  for (int j = 0; j < PL; ++j) {
-    const float am = a[j] - ma, bm = b[j] - mb;
-    cov += L.wt[j] * am * bm;
-    va += L.wt[j] * am * am;
-    vb += L.wt[j] * bm * bm;
+    for (int j = 0; j < PL; ++j) {
+      if (L.valid[j]) {
+        const float* p0 = im.p + at[j];
+        const float* p1 = p0 + im.w;
+        out[j] = __ldg(p0) * (1.f - wx[j]) * (1.f - wy[j]) +
+                 __ldg(p0 + 1) * wx[j] * (1.f - wy[j]) + __ldg(p1) * (1.f - wx[j]) * wy[j] +
+                 __ldg(p1 + 1) * wx[j] * wy[j];
+      } else {
+        out[j] = 0.f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < PL; ++j) out[j] = L.valid[j] ? bilinear(im, xs[j], ys[j]) : 0.f;
   }
-  cov = warp_sum(cov);
-  const float var = warp_sum(va) * warp_sum(vb);
-  return cov / (sqrtf(var) + 1e-6f);
 }
 
-// The template side of one ops/lk.py::_lk_level: patch, central-difference
-// gradients and the normal matrix at (px, py) in i0.
+// The window at (px, py): coordinates px + ox, py + oy as ops/lk.py forms them.
+template <int PL>
+__device__ __forceinline__ void sample_window(const Image& im, float px, float py,
+                                              const Lane<PL>& L, float (&out)[PL]) {
+  float xs[PL], ys[PL];
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    xs[j] = px + L.ox[j];
+    ys[j] = py + L.oy[j];
+  }
+  sample_at(im, xs, ys, L, out);
+}
+
+// The centring of ops/lk.py::_weighted_ncc: c = v - sum(w v); returns
+// sum(w c c) over the window.
+template <int PL>
+__device__ __forceinline__ float centre(const Lane<PL>& L, const float (&v)[PL], float (&c)[PL]) {
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < PL; ++j) s += v[j] * L.wt[j];
+  const float m = warp_sum(s);
+  float q = 0.f;
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    c[j] = v[j] - m;
+    q += L.wt[j] * c[j] * c[j];
+  }
+  return warp_sum(q);
+}
+
+// ops/lk.py::_weighted_ncc(a, b) from centred a, b and their centre() sums.
+template <int PL>
+__device__ __forceinline__ float weighted_ncc(const Lane<PL>& L, const float (&a)[PL], float va,
+                                              const float (&b)[PL], float vb) {
+  float cov = 0.f;
+#pragma unroll
+  for (int j = 0; j < PL; ++j) cov += L.wt[j] * a[j] * b[j];
+  return warp_sum(cov) / (sqrtf(va * vb) + 1e-6f);
+}
+
+// The template side of one ops/lk.py::_lk_level: the window's coordinates,
+// patch, central-difference gradients and the normal matrix at (px, py) in i0.
 template <int PL>
 struct Level {
-  float t[PL], ix[PL], iy[PL];
+  float cx[PL], cy[PL], t[PL], ix[PL], iy[PL];
   float gxx, gxy, gyy, inv_det, min_eig;
 };
 
 template <int PL>
-__device__ void level_prepare(const Image& i0, float px, float py, const Lane<PL>& L,
-                              Level<PL>& s) {
+__device__ __forceinline__ void level_prepare(const Image& i0, float px, float py,
+                                              const Lane<PL>& L, Level<PL>& s) {
+  float xs[PL], ys[PL], a[PL], b[PL];
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    s.cx[j] = px + L.ox[j];
+    s.cy[j] = py + L.oy[j];
+  }
+  sample_at(i0, s.cx, s.cy, L, s.t);
+#pragma unroll
+  for (int j = 0; j < PL; ++j) xs[j] = s.cx[j] + 0.5f;
+  sample_at(i0, xs, s.cy, L, a);
+#pragma unroll
+  for (int j = 0; j < PL; ++j) xs[j] = s.cx[j] - 0.5f;
+  sample_at(i0, xs, s.cy, L, b);
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    s.ix[j] = a[j] - b[j];
+    ys[j] = s.cy[j] + 0.5f;
+  }
+  sample_at(i0, s.cx, ys, L, a);
+#pragma unroll
+  for (int j = 0; j < PL; ++j) ys[j] = s.cy[j] - 0.5f;
+  sample_at(i0, s.cx, ys, L, b);
   float sxx = 0.f, sxy = 0.f, syy = 0.f;
 #pragma unroll
   for (int j = 0; j < PL; ++j) {
-    if (L.valid[j]) {
-      const float cx = px + L.ox[j], cy = py + L.oy[j];
-      s.t[j] = bilinear(i0, cx, cy);
-      s.ix[j] = bilinear(i0, cx + 0.5f, cy) - bilinear(i0, cx - 0.5f, cy);
-      s.iy[j] = bilinear(i0, cx, cy + 0.5f) - bilinear(i0, cx, cy - 0.5f);
-    } else {
-      s.t[j] = s.ix[j] = s.iy[j] = 0.f;
-    }
+    s.iy[j] = a[j] - b[j];
     sxx += s.ix[j] * s.ix[j];
     sxy += s.ix[j] * s.iy[j];
     syy += s.iy[j] * s.iy[j];
@@ -164,14 +255,22 @@ __device__ void level_prepare(const Image& i0, float px, float py, const Lane<PL
 
 // Gauss-Newton steps of the displacement (dx, dy) against i1.
 template <int PL>
-__device__ void level_iterate(const Image& i1, float px, float py, const Lane<PL>& L,
-                              const Level<PL>& s, int iterations, float& dx, float& dy) {
+__device__ __forceinline__ void level_iterate(const Image& i1, const Lane<PL>& L,
+                                              const Level<PL>& s, int iterations, float& dx,
+                                              float& dy) {
+  float xs[PL], ys[PL], v[PL];
   for (int it = 0; it < iterations; ++it) {
+#pragma unroll
+    for (int j = 0; j < PL; ++j) {
+      xs[j] = s.cx[j] + dx;
+      ys[j] = s.cy[j] + dy;
+    }
+    sample_at(i1, xs, ys, L, v);
     float bx = 0.f, by = 0.f;
 #pragma unroll
     for (int j = 0; j < PL; ++j) {
       if (L.valid[j]) {
-        const float r = bilinear(i1, (px + L.ox[j]) + dx, (py + L.oy[j]) + dy) - s.t[j];
+        const float r = v[j] - s.t[j];
         bx += r * s.ix[j];
         by += r * s.iy[j];
       }
@@ -191,18 +290,18 @@ __device__ __forceinline__ Image frame(const Pyramid& pyr, int level, int t) {
 }
 
 // ops/lk.py::_track_pair from frame ta to frame tb. Leaves the finest
-// level's template side in `fine` (the cost-volume polish reuses it).
+// level's template side in `fine`.
 template <int PL>
-__device__ void track_pair(const Pyramid& pyr, const Params& p, int ta, int tb, float x, float y,
-                           float init_dx, float init_dy, const Lane<PL>& L, float& nx, float& ny,
-                           Level<PL>& fine) {
+__device__ __forceinline__ void track_pair(const Pyramid& pyr, const Params& p, int ta, int tb,
+                                           float x, float y, float init_dx, float init_dy,
+                                           const Lane<PL>& L, float& nx, float& ny,
+                                           Level<PL>& fine) {
   const float coarse = static_cast<float>(1 << (p.levels - 1));
   float dx = init_dx / coarse, dy = init_dy / coarse;
   for (int lvl = p.levels - 1; lvl >= 0; --lvl) {
     const float scale = static_cast<float>(1 << lvl);
-    const float px = x / scale, py = y / scale;
-    level_prepare(frame(pyr, lvl, ta), px, py, L, fine);
-    level_iterate(frame(pyr, lvl, tb), px, py, L, fine, p.iterations, dx, dy);
+    level_prepare(frame(pyr, lvl, ta), x / scale, y / scale, L, fine);
+    level_iterate(frame(pyr, lvl, tb), L, fine, p.iterations, dx, dy);
     if (lvl > 0) {
       dx = dx * 2.f;
       dy = dy * 2.f;
@@ -216,35 +315,47 @@ __device__ void track_pair(const Pyramid& pyr, const Params& p, int ta, int tb, 
 // integer offset of the (2R+1)^2 grid around round-half-up(ex, ey); the
 // first maximum (in candidate order) wins. Lanes take the candidates.
 template <int PL>
-__device__ void corr_refine(const float (&tmpl)[PL], const Image& im, float ex, float ey, int R,
-                            int K, const Lane<PL>& L, const float* s_ox, const float* s_oy,
-                            const float* s_w, float* s_am, float& sx, float& sy) {
-  float st = 0.f;
-#pragma unroll
-  for (int j = 0; j < PL; ++j) st += tmpl[j] * L.wt[j];
-  const float mt = warp_sum(st);
-  float sv = 0.f;
-  const int lane = threadIdx.x & 31;
+__device__ __forceinline__ void corr_refine(const float (&tmpl)[PL], const Image& im, float ex,
+                                            float ey, int R, int window, const Lane<PL>& L,
+                                            const float* s_ox, const float* s_oy,
+                                            const float* s_w, float* s_am, float& sx,
+                                            float& sy) {
+  const int lane = threadIdx.x & 31, K = window * window;
+  float am[PL];
+  const float va = centre(L, tmpl, am);
 #pragma unroll
   for (int j = 0; j < PL; ++j) {
-    const float am = tmpl[j] - mt;
-    sv += L.wt[j] * am * am;
-    if (L.valid[j]) s_am[lane + 32 * j] = am;
+    if (L.valid[j]) s_am[lane + 32 * j] = am[j];
   }
-  const float va = warp_sum(sv);
   __syncwarp();
   const float cxb = floorf(ex + 0.5f), cyb = floorf(ey + 0.5f);
   const int side = 2 * R + 1, C = side * side;
+  const float half = (window - 1) / 2.f;
+  // Odd window: every tap lies on a pixel (wx = wy = 0), where the bilinear
+  // sample is the clamped pixel itself.
+  const bool on_pixels = (window & 1) == 1;
   float best = -INFINITY;
   int best_c = C;
   for (int c = lane; c < C; c += 32) {
     const float ccx = cxb + static_cast<float>(c % side - R);
     const float ccy = cyb + static_cast<float>(c / side - R);
+    const bool inside = on_pixels && ccx - half >= 0.f &&
+                        ccx + half <= static_cast<float>(im.w - 1) && ccy - half >= 0.f &&
+                        ccy + half <= static_cast<float>(im.h - 1);
+    const float* base =
+        inside ? im.p + static_cast<int>(ccy - half) * im.w + static_cast<int>(ccx - half) : im.p;
+    auto tap = [&](int k) -> float {
+      if (inside) return __ldg(base + (k / window) * im.w + k % window);
+      const float x = ccx + s_ox[k], y = ccy + s_oy[k];
+      if (!on_pixels) return bilinear(im, x, y);
+      return __ldg(im.p + min(max(to_index(y), 0), im.h - 1) * im.w +
+                   min(max(to_index(x), 0), im.w - 1));
+    };
     float mb = 0.f;
-    for (int k = 0; k < K; ++k) mb += bilinear(im, ccx + s_ox[k], ccy + s_oy[k]) * s_w[k];
+    for (int k = 0; k < K; ++k) mb += tap(k) * s_w[k];
     float cov = 0.f, vb = 0.f;
     for (int k = 0; k < K; ++k) {
-      const float bm = bilinear(im, ccx + s_ox[k], ccy + s_oy[k]) - mb;
+      const float bm = tap(k) - mb;
       cov += s_w[k] * s_am[k] * bm;
       vb += s_w[k] * bm * bm;
     }
@@ -268,8 +379,11 @@ __device__ void corr_refine(const float (&tmpl)[PL], const Image& im, float ex, 
   sy = cyb + static_cast<float>(best_c / side - R);
 }
 
+// At most 64 registers a thread, so that 8 blocks fit on an SM: the
+// pipeline's 4096 points then run in one wave (1,024 blocks on 132 SMs); at
+// 80 registers a second wave of whole 150-frame chains followed the first.
 template <int PL>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(WARPS * 32, 8)
     lk_track_kernel(Pyramid pyr, const float* __restrict__ tmpl0, Image tmpl_rescue,
                     const float* __restrict__ queries, const float* __restrict__ tpos,
                     const float* __restrict__ init_vel, const float* __restrict__ gauss_w,
@@ -300,11 +414,17 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
   const int h = pyr.h[0], w = pyr.w[0];
   const float tx = tpos[2 * n], ty = tpos[2 * n + 1];
-  float tmpl[PL], tmpl_c[PL];
-  sample(Image{tmpl0, h, w}, tx, ty, L, tmpl);
+  float tmpl[PL], tmpl_c[PL], tam[PL];
+  sample_window(Image{tmpl0, h, w}, tx, ty, L, tmpl);
+  const float tva = centre(L, tmpl, tam);  // the template NCC's centred template
   const bool rescue = p.corr_radius > 0 && p.rescue_level > 0;
   const float rescue_scale = static_cast<float>(1 << p.rescue_level);
-  if (rescue) sample(tmpl_rescue, tx / rescue_scale, ty / rescue_scale, L, tmpl_c);
+  if (rescue) {
+    sample_window(tmpl_rescue, tx / rescue_scale, ty / rescue_scale, L, tmpl_c);
+  } else {
+#pragma unroll
+    for (int j = 0; j < PL; ++j) tmpl_c[j] = 0.f;
+  }
 
   float x = queries[2 * n], y = queries[2 * n + 1];
   float vx = init_vel[2 * n], vy = init_vel[2 * n + 1];
@@ -315,37 +435,41 @@ __global__ void __launch_bounds__(WARPS * 32)
     tr[1] = y;
     vi[0] = 1.f;
   }
-  Level<PL> fine, scratch;
-  float win[PL], prev[PL];
+  Level<PL> fine;
+  float win[PL], wc[PL];
   for (int t = 0; t + 1 < p.T; ++t) {
     float nx, ny;
     track_pair(pyr, p, t, t + 1, x, y, vx, vy, L, nx, ny, fine);
     const float min_eig = fine.min_eig;
-    const Image f0 = frame(pyr, 0, t), f1 = frame(pyr, 0, t + 1);
+    const Image f1 = frame(pyr, 0, t + 1);
     if (p.corr_radius > 0) {
       float cand_x[2], cand_y[2];
       int n_cand = 0;
       float sx, sy;
-      corr_refine(tmpl, f1, nx, ny, p.corr_radius, K, L, s_ox, s_oy, s_w, s_am[warp], sx, sy);
+      corr_refine(tmpl, f1, nx, ny, p.corr_radius, p.window, L, s_ox, s_oy, s_w, s_am[warp], sx,
+                  sy);
       float dx = sx - x, dy = sy - y;
-      level_iterate(f1, x, y, L, fine, p.corr_iterations, dx, dy);
+      level_iterate(f1, L, fine, p.corr_iterations, dx, dy);
       cand_x[n_cand] = x + dx;
       cand_y[n_cand++] = y + dy;
       if (rescue) {
         corr_refine(tmpl_c, frame(pyr, p.rescue_level, t + 1), nx / rescue_scale,
-                    ny / rescue_scale, p.corr_radius, K, L, s_ox, s_oy, s_w, s_am[warp], sx, sy);
+                    ny / rescue_scale, p.corr_radius, p.window, L, s_ox, s_oy, s_w, s_am[warp],
+                    sx, sy);
         dx = sx * rescue_scale - x;
         dy = sy * rescue_scale - y;
-        level_iterate(f1, x, y, L, fine, p.corr_iterations, dx, dy);
+        level_iterate(f1, L, fine, p.corr_iterations, dx, dy);
         cand_x[n_cand] = x + dx;
         cand_y[n_cand++] = y + dy;
       }
-      sample(f1, nx, ny, L, win);
-      const float score_lk = weighted_ncc(tmpl, win, L);
+      sample_window(f1, nx, ny, L, win);
+      float vw = centre(L, win, wc);
+      const float score_lk = weighted_ncc(L, tam, tva, wc, vw);
       float best_x = nx, best_y = ny, best_score = score_lk;
       for (int c = 0; c < n_cand; ++c) {
-        sample(f1, cand_x[c], cand_y[c], L, win);
-        const float s = weighted_ncc(tmpl, win, L);
+        sample_window(f1, cand_x[c], cand_y[c], L, win);
+        vw = centre(L, win, wc);
+        const float s = weighted_ncc(L, tam, tva, wc, vw);
         if (s > best_score) {
           best_x = cand_x[c];
           best_y = cand_y[c];
@@ -359,19 +483,25 @@ __global__ void __launch_bounds__(WARPS * 32)
     }
     bool visible = nx >= 0.f && nx <= static_cast<float>(w - 1) && ny >= 0.f &&
                    ny <= static_cast<float>(h - 1) && min_eig > 1e-6f;
-    if (p.fb_threshold > -1.f) {
+    if (p.ncc_threshold > -1.f || p.tncc_threshold > -1.f) {
+      sample_window(f1, nx, ny, L, win);
+      const float vw = centre(L, win, wc);
+      if (p.ncc_threshold > -1.f) {
+        // ops/lk.py samples frame t at (x, y) + offsets: the fine level's
+        // template patch, the same coordinates in the same frame.
+        float pc[PL];
+        const float vp = centre(L, fine.t, pc);
+        visible = visible && weighted_ncc(L, pc, vp, wc, vw) > p.ncc_threshold;
+      }
+      if (p.tncc_threshold > -1.f) {
+        visible = visible && weighted_ncc(L, tam, tva, wc, vw) > p.tncc_threshold;
+      }
+    }
+    if (p.fb_threshold > -1.f) {  // last: the backward pass overwrites `fine`
       float bx, by;
-      track_pair(pyr, p, t + 1, t, nx, ny, x - nx, y - ny, L, bx, by, scratch);
+      track_pair(pyr, p, t + 1, t, nx, ny, x - nx, y - ny, L, bx, by, fine);
       const float ex = bx - x, ey = by - y;
       visible = visible && sqrtf(ex * ex + ey * ey) < p.fb_threshold;
-    }
-    if (p.ncc_threshold > -1.f || p.tncc_threshold > -1.f) {
-      sample(f1, nx, ny, L, win);
-      if (p.ncc_threshold > -1.f) {
-        sample(f0, x, y, L, prev);
-        visible = visible && weighted_ncc(prev, win, L) > p.ncc_threshold;
-      }
-      if (p.tncc_threshold > -1.f) visible = visible && weighted_ncc(tmpl, win, L) > p.tncc_threshold;
     }
     const float cx = fminf(fmaxf(nx, 0.f), static_cast<float>(w - 1));
     const float cy = fminf(fmaxf(ny, 0.f), static_cast<float>(h - 1));

@@ -2,7 +2,8 @@
 
 Replaces the TPU kernel ``tdspa/kernels/lk.py::track_video_lk_pallas`` with
 ``tdspa_torch/csrc/lk.cu``: one launch tracks every point through every frame
-pair of the call (one warp per point, the frame-pair loop inside the kernel).
+pair of the call (one warp per point, the frame-pair loop inside the kernel;
+a window whose corners all lie inside the level is read with no clamps).
 ``track_video_lk_kernel`` has the TPU entry's contract: the chunking
 arguments (``template_frame``, ``template_pos``, ``init_velocity``,
 ``return_velocity``) and ``input_scale`` 0.5 handled here, around the

@@ -6,7 +6,11 @@ Replaces the TPU kernel ``tdspa/kernels/matcher.py::cost_patches_multi_pallas``
 point's template vectors and the feature map sampled bilinearly around the
 point's position in every frame. It computes the XLA path of the matcher
 (``tdspa/features/matcher.py::_cost_patches_multi``), whose border corners
-clamp one by one; the TPU kernel shifts border windows inward instead.
+clamp one by one; the TPU kernel shifts border windows inward instead. The
+kernel contracts each clamped window pixel with the templates first and
+blends the four products of each offset after (``tests/test_torch_matcher.py``
+models that order and its window in torch); the plain version blends
+channels, then contracts.
 
 ``cost_patches_multi`` launches the kernel for CUDA tensors and runs
 ``cost_patches_reference`` for CPU tensors; it never falls back from one to
@@ -24,6 +28,7 @@ from tdspa_torch.kernels import build
 from tdspa_torch.kernels.bilinear import bilinear_sample_reference
 
 DIMS = (8, 16, 32)  # feature widths the kernel is built for
+MAX_RADIUS = 8  # csrc/matcher.cu: a block's window products fit 48 KB of shared memory
 
 
 def offset_grid(radius: int, device=None) -> torch.Tensor:
@@ -62,7 +67,7 @@ def cost_patches_multi(feats, template_vecs, positions, radius: int = 4):
     [N T 2] feature-pixel positions -> [N T M (2R+1)^2] f32.
 
     CUDA tensors launch the Hopper kernel, which takes f32 with D in
-    ``DIMS``; anything else raises. CPU tensors run
+    ``DIMS`` and ``radius <= MAX_RADIUS``; anything else raises. CPU tensors run
     ``cost_patches_reference``.
     """
     if feats.dim() != 4 or template_vecs.dim() != 3 or positions.dim() != 3:
@@ -90,11 +95,15 @@ def cost_patches_multi(feats, template_vecs, positions, radius: int = 4):
         raise TypeError("kernel takes f32 feats, template_vecs and positions")
     if dim not in DIMS:
         raise ValueError(f"kernel takes feature width D in {DIMS}, got {dim}")
+    if radius > MAX_RADIUS:
+        raise ValueError(f"kernel takes radius <= {MAX_RADIUS}, got {radius}")
     feats, template_vecs, positions = (
         x.contiguous() for x in (feats, template_vecs, positions)
     )
     if feats.data_ptr() % 16 or template_vecs.data_ptr() % 16:
         raise ValueError("kernel takes 16-byte aligned feats and template_vecs")
+    if positions.data_ptr() % 8:
+        raise ValueError("kernel takes 8-byte aligned positions")
     k2 = (2 * radius + 1) ** 2
     out = torch.empty((n, t, m, k2), dtype=torch.float32, device=feats.device)
     if out.numel() == 0 or hf * wf == 0:

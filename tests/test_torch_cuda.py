@@ -177,22 +177,41 @@ def test_tiny_vit_runs_the_kernel_and_matches_the_plain_path(cuda_device):
 
 
 LK_CONFIGS = [dict(fb_threshold=-1.0, iterations=3), dict(fb_threshold=2.0, iterations=4),
-              dict(corr_radius=4, corr_rescue_level=2), dict(input_scale=0.5)]
+              dict(corr_radius=4, corr_rescue_level=2), dict(input_scale=0.5),
+              dict(window=5, corr_radius=2), dict(window=8, fb_threshold=-1.0, iterations=3)]
+
+
+def _border_queries(height, width):
+    """The scene's grid plus points on, near and just inside each edge and
+    corner, so that windows take the kernel's clamped path as well as its
+    interior one at every level."""
+    import numpy as np
+
+    from tdspa_torch.features.tracks import make_query_grid
+
+    xs = [0.0, 0.6, 2.5, 3.99, width / 2 + 0.3, width - 4.5, width - 1.4, width - 1.0]
+    ys = [0.0, 1.2, 3.5, height / 2 + 0.7, height - 3.2, height - 1.0]
+    edge = np.array([(x, y) for x in xs for y in ys], np.float32)
+    return np.concatenate([make_query_grid(height, width, 10), edge])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("config", range(len(LK_CONFIGS)))
 def test_lk_kernel_matches_plain_version(cuda_device, config):
     """Tolerance as in chip_smoke.py: 0.05 px on 99 % of (point, frame) pairs
-    and 99 % visibility agreement (thresholded decisions on f32 sums)."""
-    from tdspa_torch.features.tracks import make_query_grid
+    and 99 % visibility agreement (thresholded decisions on f32 sums). The
+    scene pans, so tracks reach and leave the border, and samplings take both
+    the kernel's interior path and its clamped one: the four configurations
+    of chip_smoke.py, then window 5 (one pixel per lane, with the cost
+    volume) and window 8 (an even window: taps between pixels)."""
     from tdspa_torch.kernels.lk import track_video_lk_kernel
     from tdspa_torch.ops.lk import track_video_lk
     from tdspa_torch.utils.synthetic_video import make_tracking_scene
 
-    video, _, _ = make_tracking_scene(num_frames=12, height=96, width=128, grid_size=10)
+    video, _, _ = make_tracking_scene(num_frames=12, height=96, width=128, grid_size=10,
+                                      pan=(3, -2))
     v = torch.from_numpy(video).to(cuda_device)
-    queries = make_query_grid(96, 128, 10)
+    queries = _border_queries(96, 128)
     before = track_video_lk_kernel.launches
     got = track_video_lk_kernel(v, queries, return_velocity=True, **LK_CONFIGS[config])
     torch.cuda.synchronize()
@@ -206,23 +225,37 @@ def test_lk_kernel_matches_plain_version(cuda_device, config):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dim", [8, 16, 32])
 @pytest.mark.parametrize("m", [1, 4])
-def test_matcher_kernel_matches_plain_version(cuda_device, m):
-    """Tolerance 1e-4: both f32 with the same corner clamps; the kernel forms
-    the bilinear weights and the 16-term dot product in another order."""
+def test_matcher_kernel_matches_plain_version(cuda_device, dim, m):
+    """Tolerance 1e-4: both f32 with the same corner clamps and weights; the
+    kernel contracts each window pixel with the templates before it blends
+    (the plain version blends, then contracts). Points inside, on and past
+    each border and corner, and far outside; radius 4 (fixed at compile
+    time) and 3."""
     from tdspa_torch.kernels.matcher import cost_patches_multi, cost_patches_reference
 
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    gen = torch.Generator(device=cuda_device).manual_seed(dim + m)
     feats = torch.nn.functional.normalize(
-        torch.randn((6, 40, 48, 16), generator=gen, device=cuda_device), dim=-1)
+        torch.randn((6, 40, 48, dim), generator=gen, device=cuda_device), dim=-1)
     tvecs = torch.nn.functional.normalize(
-        torch.randn((37, m, 16), generator=gen, device=cuda_device), dim=-1)
-    pos = torch.rand((37, 6, 2), generator=gen, device=cuda_device) * 60 - 6  # borders too
+        torch.randn((41, m, dim), generator=gen, device=cuda_device), dim=-1)
+    pos = torch.rand((41, 6, 2), generator=gen, device=cuda_device) * 60 - 6
+    edges = torch.tensor([[0.0, 0.0], [47.0, 39.0], [-0.5, 20.3], [47.6, 12.1], [20.2, -3.7],
+                          [11.1, 39.4], [-1e9, 5.0], [1e9, 1e9], [0.99999994, 38.99999]],
+                         device=cuda_device)
+    pos[: edges.shape[0], 0] = edges
     before = cost_patches_multi.launches
     got = cost_patches_multi(feats, tvecs, pos, 4)
     torch.cuda.synchronize()
     assert cost_patches_multi.launches == before + 1
+    assert torch.isfinite(got).all()
     torch.testing.assert_close(got, cost_patches_reference(feats, tvecs, pos, 4), atol=1e-4, rtol=0)
+    # Another radius takes the kernel's runtime-radius path.
+    torch.testing.assert_close(cost_patches_multi(feats, tvecs, pos, 3),
+                               cost_patches_reference(feats, tvecs, pos, 3), atol=1e-4, rtol=0)
+    with pytest.raises(ValueError, match="radius"):
+        cost_patches_multi(feats, tvecs, pos, 9)
 
 
 @pytest.mark.cuda

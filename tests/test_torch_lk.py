@@ -78,6 +78,94 @@ def test_cpu_wrapper_runs_the_plain_version_and_launches_nothing():
         track_video_lk_kernel(video, queries)
 
 
+def _kernel_samples(img, xs, ys):
+    """csrc/lk.cu::sample_at in torch, for samplings of a window (rows of xs,
+    ys [S K]): where every corner of a sampling lies inside the level, its
+    samples read the pixels at floor(y) * w + floor(x) and the next column
+    and row with no clamps; other samplings take the clamped per-sample path
+    (ops/lk.py's bilinear). Returns (samples [S K], inside [S])."""
+    h, w = img.shape
+    x0f, y0f = torch.floor(xs), torch.floor(ys)
+    wx, wy = xs - x0f, ys - y0f
+    xi, yi = x0f.clamp(-2**31, 2**31 - 1).long(), y0f.clamp(-2**31, 2**31 - 1).long()
+    inside = ((xi >= 0) & (xi < w - 1) & (yi >= 0) & (yi < h - 1)).all(-1)
+    out = lk.bilinear(img, torch.stack([xs, ys], -1))
+    flat = img.reshape(-1)
+    at = (yi * w + xi)[inside]
+    wx, wy = wx[inside], wy[inside]
+    out[inside] = (flat[at] * (1 - wx) * (1 - wy) + flat[at + 1] * wx * (1 - wy)
+                   + flat[at + w] * (1 - wx) * wy + flat[at + w + 1] * wx * wy)
+    return out, inside
+
+
+@pytest.mark.parametrize("input_scale", [1.0, 0.5])
+def test_kernel_interior_path_reads_the_plain_corners(input_scale):
+    """The LK kernel's interior path, modelled in torch, reads exactly the
+    corners that ops/lk.py's bilinear reads where it is taken, and gives its
+    samples bit for bit, at each of 3 levels for window 7: the samplings of
+    the template patch, of the two central differences and of Gauss-Newton
+    steps, around positions near each border and corner of the level; the
+    other samplings take the clamped path."""
+    video, _ = _tiny_scene()
+    gray = lk.prepare_inputs(torch.from_numpy(video), make_query_grid(64, 96, 6), None, None,
+                             None, 2.0, input_scale)[0]
+    offs = lk.window_offsets(7)
+    rng = np.random.default_rng(int(input_scale * 10))
+    taken = total = 0
+    for level in lk.build_pyramid(gray, 3):
+        img = level[3]
+        h, w = img.shape
+
+        def near(size):
+            return [-3.7, -0.5, 0.0, 0.7, 2.5, 3.0, 3.4999998, 3.9999998, 4.2, size / 2 + 0.37,
+                    size - 5.5, size - 4.5, size - 4.0, size - 1.0, size + 1.6]
+
+        pts = torch.tensor([(x, y) for x in near(w) for y in near(h)], dtype=torch.float32)
+        steps = torch.from_numpy(rng.uniform(-2.5, 2.5, pts.shape).astype(np.float32))
+        cx, cy = pts[:, 0:1] + offs[:, 0], pts[:, 1:2] + offs[:, 1]  # [P K] as ops/lk.py forms them
+        samplings = [(cx, cy), (cx + 0.5, cy), (cx - 0.5, cy), (cx, cy + 0.5), (cx, cy - 0.5),
+                     (cx + steps[:, 0:1], cy + steps[:, 1:2])]
+        for xs, ys in samplings:
+            got, inside = _kernel_samples(img, xs, ys)
+            assert torch.equal(got, lk.bilinear(img, torch.stack([xs, ys], -1)))
+            # Where the interior path is taken, the clamps change no corner.
+            x0, y0 = torch.floor(xs[inside]).long(), torch.floor(ys[inside]).long()
+            assert torch.equal(x0.clamp(0, w - 1), x0) and torch.equal((x0 + 1).clamp(0, w - 1), x0 + 1)
+            assert torch.equal(y0.clamp(0, h - 1), y0) and torch.equal((y0 + 1).clamp(0, h - 1), y0 + 1)
+            taken += int(inside.sum())
+            total += inside.numel()
+    assert 0 < taken < total  # both paths ran
+
+
+@pytest.mark.parametrize("window", [5, 7])
+def test_kernel_cost_volume_taps_are_pixels(window):
+    """With an odd window the cost volume's candidates (round-half-up
+    centre + integer offsets) and their taps lie on pixels, where ops/lk.py's
+    bilinear gives the clamped pixel itself: the LK kernel reads one pixel
+    per tap, from the patch's rows with no clamps where the patch is inside
+    the frame."""
+    video, _ = _tiny_scene()
+    img = lk.to_gray(torch.from_numpy(video))[2]
+    h, w = img.shape
+    est = torch.tensor([[-9.6, 3.2], [0.5, 0.49], [2.5, 61.5], [40.3, 30.7], [93.6, 62.2],
+                        [95.0, 70.4], [1e9, -1e9]])
+    d = torch.arange(-4, 5, dtype=torch.float32)
+    dy, dx = torch.meshgrid(d, d, indexing="ij")
+    centers = torch.floor(est + 0.5)[:, None] + torch.stack([dx.reshape(-1), dy.reshape(-1)], -1)
+    taps = centers[:, :, None] + lk.window_offsets(window)  # [P 81 K 2]
+    want = lk.bilinear(img, taps)
+    xi = taps[..., 0].clamp(-1e9, 1e9).long().clamp(0, w - 1)
+    yi = taps[..., 1].clamp(-1e9, 1e9).long().clamp(0, h - 1)
+    assert torch.equal(img[yi, xi], want)
+    half = (window - 1) // 2
+    cx, cy = centers[..., 0], centers[..., 1]
+    inside = (cx - half >= 0) & (cx + half <= w - 1) & (cy - half >= 0) & (cy + half <= h - 1)
+    assert 0 < int(inside.sum()) < inside.numel()
+    k = torch.arange(window * window)
+    base = (cy[inside] - half).long()[:, None] * w + (cx[inside] - half).long()[:, None]
+    assert torch.equal(img.reshape(-1)[base + (k // window) * w + k % window], want[inside])
+
+
 @pytest.mark.parametrize("input_scale", [1.0, 0.5])
 def test_chunking_arguments_at_their_defaults_change_nothing(input_scale):
     video, queries = _tiny_scene()

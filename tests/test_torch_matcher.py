@@ -111,6 +111,70 @@ def test_cpu_wrapper_runs_the_plain_version_and_launches_nothing():
         cost_patches_multi(feats[0], tvecs, fpos)
 
 
+def _window_dot_then_blend(feats, tvecs, fpos, radius):
+    """csrc/matcher.cu's arithmetic in torch: the (2R+2)^2 window of clamped
+    rows and columns around floor(fpos), its dot products with the
+    templates, then each offset's blend of four products, with the plain
+    version's weights (x = px + ox in f32, wx = x - floor(x); weight 1 on the
+    next column where px + ox rounds up onto an integer)."""
+    t, hf, wf, _ = feats.shape
+    width, side = 2 * radius + 2, 2 * radius + 1
+    floors = torch.floor(fpos)  # [N T 2]
+    start = floors.clamp(-1e9, 1e9).long() - radius
+    span = torch.arange(width)
+    cols = (start[..., 0, None] + span).clamp(0, wf - 1)  # [N T W]
+    rows = (start[..., 1, None] + span).clamp(0, hf - 1)
+    frames = torch.arange(t)[None, :, None, None]
+    window = feats[frames, rows[..., :, None], cols[..., None, :]]  # [N T W W D]
+    prods = torch.einsum("ntjid,nmd->ntmji", window, tvecs)  # [N T M W W]
+    offs = torch.arange(side, dtype=torch.float32) - radius
+    pos = fpos[..., None] + offs  # [N T 2 side]
+    weights = torch.where(torch.floor(pos) > floors[..., None] + offs, 1.0, pos - torch.floor(pos))
+    wx = weights[:, :, None, 0, None, :]  # [N T 1 1 side] over kx
+    wy = weights[:, :, None, 1, :, None]  # [N T 1 side 1] over ky
+    costs = (prods[..., :-1, :-1] * ((1 - wx) * (1 - wy)) + prods[..., :-1, 1:] * (wx * (1 - wy))
+             + prods[..., 1:, :-1] * ((1 - wx) * wy) + prods[..., 1:, 1:] * (wx * wy))
+    return costs.reshape(*costs.shape[:3], side * side), cols, rows
+
+
+@pytest.mark.parametrize("m", [1, 4])
+def test_kernel_window_model_matches_the_plain_version(m):
+    """The kernel's clamped window and its dot-then-blend order equal
+    ``cost_patches_reference`` within 1e-5 at R = 4, D = 16: positions
+    inside, on and past each border and corner, far outside (+-1e9), and
+    one whose px + ox rounds up onto the next pixel. The window's columns
+    and rows hold every corner the plain version reads."""
+    rng = np.random.default_rng(10 + m)
+    hf, wf, radius = 21, 26, 4
+    feats = rng.standard_normal((3, hf, wf, 16)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
+    tvecs = rng.standard_normal((40, m, 16)).astype(np.float32)
+    tvecs /= np.linalg.norm(tvecs, axis=-1, keepdims=True)
+    xs = [-1e9, -7.5, -4.2, -0.5, 0.0, 0.99999994, 3.3, 12.6, wf - 4.7, wf - 1.0, wf + 0.4, 1e9]
+    ys = [-1e9, -2.1, 0.0, 0.99999994, 3.5, 10.25, hf - 1.0, hf + 3.9, 1e9]
+    pts = np.array([(x, y) for x in xs for y in ys], np.float32)
+    fpos = np.concatenate([pts, rng.uniform(-9, 30, (120 - len(pts), 2)).astype(np.float32)])
+    fpos = torch.from_numpy(fpos.reshape(40, 3, 2))  # 108 chosen + 12 random positions
+    feats_t, tvecs_t = torch.from_numpy(feats), torch.from_numpy(tvecs)
+    got, cols, rows = _window_dot_then_blend(feats_t, tvecs_t, fpos, radius)
+    want = cost_patches_reference(feats_t, tvecs_t, fpos, radius)
+    assert got.shape == want.shape == (40, 3, m, 81)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    # Offset k's corners in the plain version: floor(px + ox) and the next,
+    # each clamped; they are window columns kx and kx + 1 (kx + 1 alone
+    # where px + ox rounded up, the weight then all on it).
+    offs = torch.arange(-radius, radius + 1, dtype=torch.float32)
+    for axis, lines, size in ((0, cols, wf), (1, rows, hf)):
+        floor = torch.floor(fpos[..., axis, None] + offs)
+        corner = floor.clamp(-1e9, 1e9).long()
+        plain0, plain1 = corner.clamp(0, size - 1), (corner + 1).clamp(0, size - 1)
+        shifted = floor > torch.floor(fpos[..., axis, None]) + offs
+        assert shifted.any()  # the rounding case is in the set
+        window0, window1 = lines[..., :-1], lines[..., 1:]
+        assert torch.equal(torch.where(shifted, window1, window0), plain0)
+        assert torch.equal(plain1[~shifted], window1[~shifted])
+
+
 def test_refine_tracks_matches_jax(tree, model):
     video, gt, _ = make_tracking_scene(num_frames=6, height=64, width=64, grid_size=5,
                                        noise_sigma=10.0)
