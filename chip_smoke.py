@@ -89,6 +89,28 @@ and the script exits non-zero:
    block + 11 attention launches; 3 bilinear launches per tail in every
    pipeline; each against phase 4's bf16 pipeline.
 
+15. tracking_tiers: the pipeline's default tracker on three more full-width
+   scenes that engage the 'auto' tiers the clean and noisy ones leave off: a
+   fast pan (the cost-volume rescue, kept), a 60-degree roll (roll-stabilise)
+   and heavy noise over natural texture (the rescue runs and is discarded,
+   then the denoise re-track is kept); the tiers, LK launches split by
+   configuration (plain, cost volume), matcher launches, seconds per scene,
+   and quality within 0.02 of the JAX tracker's on the same scenes.
+16. realism: ``score_tracks`` on phase 10's tail batch (2048 support, 512
+   queries, 150 frames) with the fused attention kernel and with plain
+   attention; ``save_visualization_npz`` writes the reference's contract.
+17. video_entry: the clean scene written as an mp4 (``save_video``), then
+   ``run_inference(path)`` and the infer CLI (``tdspa_torch.cli.infer.main``)
+   on it: per run 456 ViT, 19 attention, 3 bilinear and 4 LK launches, and
+   ``predictions.npz`` in the reference's schema.
+18. eval_harness: ``evaluate_model`` at full width (default 3DSPA, seeded
+   weights, 150 frames, DINO and depth on, no features supplied) on 16
+   synthetic videos in the TAPVid-3D npz layout with 100-1000 tracks
+   (buckets of 256, 512, 768 and 1024 tracks, batch_size 8): attention
+   launches and the work plans of the new batched shapes, wall time per
+   video, the forward against plain attention, the metrics against plain
+   attention and batched against per video.
+
 With ``--profile``, one more run of each full-width pipeline's stage (and
 of each feature extractor) under ``torch.profiler`` reports the device's
 busy time and the kernels that take it.
@@ -102,6 +124,7 @@ Without a GPU it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import re
@@ -114,12 +137,17 @@ import time
 import numpy as np
 import torch
 
+from tdspa_torch.cli import infer as infer_cli
+from tdspa_torch.data.providers import NpzDirectoryProvider
+from tdspa_torch.eval import harness
+from tdspa_torch.eval.realism import save_visualization_npz, score_tracks
 from tdspa_torch.eval.tracking_quality import tracking_quality
 from tdspa_torch.features import matcher as matcher_lib
 from tdspa_torch.features.depth import VideoDepthEstimator
 from tdspa_torch.features.dino import DinoFeatureExtractor
 from tdspa_torch.features.tracks import PyramidalLKTracker, make_query_grid
-from tdspa_torch.infer.pipeline import InferencePipeline, save_results
+from tdspa_torch.infer.pipeline import InferencePipeline, fused_tail, run_inference, save_results
+from tdspa_torch.infer.video import save_video
 from tdspa_torch.core.attention import ParallelTransformerBlock, reset_parameters
 from tdspa_torch.kernels import build
 from tdspa_torch.kernels import lk as lk_kernel
@@ -284,12 +312,42 @@ TRACKER = dict(grid_size=GRID, fb_threshold=-1.0, iterations=3, matcher="auto") 
 JAX_QUALITY = {
     "clean": {"pts_within_2": 0.813, "visibility_accuracy": 0.833},
     "noisy": {"pts_within_2": 0.812, "visibility_accuracy": 0.750},
+    # TIER_SCENES below, measured the same way (make_tracking_scene at SCENE's
+    # size with these arguments, the JAX tracker through __call__, scored by
+    # tdspa.eval.tracking_quality); the JAX tracker ran the tiers of
+    # TIER_EXPECTED with the LK calls of TIER_LAUNCHES.
+    "pan": {"pts_within_2": 0.8547, "visibility_accuracy": 0.8835},
+    "roll": {"pts_within_2": 0.7676, "visibility_accuracy": 0.8205},
+    "denoise": {"pts_within_2": 0.2240, "visibility_accuracy": 0.7078},
 }
 QUALITY_SLACK = 0.02
 EXPECTED_TIERS = {
     "clean": {"stabilize": None, "rescue": None, "denoise": None, "matcher": None},
     "noisy": {"stabilize": None, "rescue": None, "denoise": None, "matcher": True},
 }
+# The 'auto' tiers at full width: a fast pan collapses LK and the cost-volume
+# rescue is kept; 0.4 degrees of roll per frame (60 over the video) gates the
+# stabilised re-track; heavy noise over natural texture collapses LK, the
+# rescue is discarded and the re-track on blurred luma is kept.
+TIER_SCENES = {
+    "pan": dict(seed=3, pan=(8, 0)),
+    "roll": dict(seed=2, rot_rate=float(np.deg2rad(0.4))),
+    "denoise": dict(seed=0, noise_sigma=10.0, contrast=0.7, texture="natural"),
+}
+TIER_EXPECTED = {
+    "pan": {"stabilize": None, "rescue": True, "denoise": None, "matcher": None},
+    "roll": {"stabilize": True, "rescue": None, "denoise": None, "matcher": None},
+    "denoise": {"stabilize": None, "rescue": False, "denoise": True, "matcher": None},
+}
+# LK launches per tracker call (all, and those with the cost volume) and
+# matcher launches: pan = first pass + rescue; roll = first pass + the
+# stabilised re-track; denoise = first pass + rescue + the blurred re-track.
+TIER_LAUNCHES = {
+    "pan": {"lk": 2, "lk_cost_volume": 1, "matcher": 0},
+    "roll": {"lk": 2, "lk_cost_volume": 0, "matcher": 0},
+    "denoise": {"lk": 3, "lk_cost_volume": 1, "matcher": 0},
+}
+TIER_RUNS = 2
 MATCHER_LAUNCHES = 8  # (2 at M=1 + 2 at M=4) per refinement, and once more for the rescue round
 CHUNK_FRAMES = 40  # InferencePipeline's upload_chunk_frames
 CHUNK_LAUNCHES = -(-NUM_FRAMES // CHUNK_FRAMES)  # one LK launch per upload chunk
@@ -311,6 +369,34 @@ MATCHER_ATOL = 1e-4
 # Chunked vs unchunked tracking on the card: the same kernel on the same
 # frames with the positions, velocity and template carried across chunks.
 CHUNK_TOL_PX = 1e-4
+
+# The TAPVid-3D harness at full width: 16 synthetic videos, track counts drawn
+# from 100-1000 with SEED (3, 3, 6 and 4 videos in the 256, 512, 768 and 1024
+# buckets: forwards of 4, 4, 8 and 4 videos), 512x512 camera with given
+# intrinsics, both depth scalings.
+HARNESS_VIDEOS, HARNESS_BATCH, HARNESS_BUCKET = 16, 8, 256
+HARNESS_TRACKS = (100, 1000)
+HARNESS_INTRINSICS = (400.0, 400.0, 256.0, 256.0)
+HARNESS_SCALINGS = ("median", "per_trajectory")
+# Aggregated metrics, kernel vs plain attention and batched vs per video: both
+# pairs' forwards differ (bf16 roundings inside the 19 attentions; the
+# bottleneck dither drawn for the whole [B 128 96] latents, so a video's
+# latents move by up to 1/128 with its batch), so thresholded flags flip on a
+# few (point, frame) pairs; held at JAX's own batched-vs-per-video limit
+# (tests/integration/test_eval_harness.py), a mean over 16 videos.
+HARNESS_METRIC_ATOL = 0.02
+# The realism scorer, kernel vs plain attention on one batch: the forward is
+# held to PIPELINE_RTOL of the tracks' range in each coordinate; a point's
+# error, a 3-D distance, moves by at most its predicted point's change, so each
+# point_error and mean_error stay within sqrt(3) times that bound, and each
+# score exp(-10 error) within 10 * max(score) times the error's bound.
+# realism_score, relative to its own value: 1e-2, five times the 2.0e-3 of
+# the first reading (2.1e-6 on 1.05e-3, NVIDIA H100 80GB HBM3, 700 W).
+REALISM_SCORE_RTOL = 1e-2
+# The batch rebuilt from the pipeline's tracks, features and split against
+# the pipeline's own tail: the same model and kernels on the same inputs
+# (bit-equal in the first reading).
+REBUILT_BATCH_RTOL = 1e-6
 
 
 def emit(phase: str, **fields) -> None:
@@ -1101,8 +1187,366 @@ def phase_pipeline_full(scene) -> dict:
         raise AssertionError(f"streamed features differ from the whole-video call: {bad}")
     _check_quality("clean", quality, "full pipeline")
     tracker.track_chunks = track_chunks
+    # What the last run's tail took in, for the realism phase.
+    tail_inputs = {"tracks": captured["tracks"], "visible": captured["visible"],
+                   "dino_grid": results["dino_grid"], "depth": results["depth"],
+                   "predictions": preds}
     del whole, results, captured
-    return {"pipeline": pipe, "launches": launches, "timings": timings}
+    return {"pipeline": pipe, "launches": launches, "timings": timings, "tail_inputs": tail_inputs,
+            "video": scene["video"]}
+
+
+def _lk_counts() -> dict:
+    lk = lk_kernel.track_video_lk_kernel
+    return {"lk": lk.launches, "lk_cost_volume": lk.cost_volume_launches,
+            "matcher": cost_patches_multi.launches}
+
+
+def phase_tracking_tiers() -> dict:
+    """The pipeline's default tracker on the scenes that engage the rescue,
+    roll-stabilise and denoise tiers at full width: tiers, LK launches by
+    configuration, matcher launches, seconds per call, quality against the
+    ground truth and the JAX tracker's."""
+    rows = {}
+    for name, kw in TIER_SCENES.items():
+        t0 = time.perf_counter()
+        video_np, gt_tracks, gt_visible = make_tracking_scene(**SCENE, **kw)
+        scene_s = time.perf_counter() - t0
+        video = torch.from_numpy(video_np).cuda()
+        tracker = PyramidalLKTracker(**TRACKER)
+        lk_kernel.track_video_lk_kernel.launches = 0
+        lk_kernel.track_video_lk_kernel.cost_volume_launches = 0
+        cost_patches_multi.launches = 0
+        seconds, tiers = [], []
+        for _ in range(TIER_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tracker(video)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            tiers.append(dict(tracker.tiers))
+        launches = _lk_counts()
+        quality = _quality(out, {"gt_tracks": gt_tracks, "gt_visible": gt_visible})
+        want_launches = {k: v * TIER_RUNS for k, v in TIER_LAUNCHES[name].items()}
+        row = dict(scene=name, scene_args=kw, scene_seconds=scene_s, tiers=tiers[-1],
+                   expected_tiers=TIER_EXPECTED[name], runs=TIER_RUNS, launches=launches,
+                   expected_launches=want_launches, seconds=seconds, quality=quality,
+                   jax_quality=JAX_QUALITY[name], true_occluded_share=float(1 - gt_visible[:, 1:].mean()),
+                   noise_sigma=matcher_lib.estimate_degradation(video)["noise_sigma"])
+        emit("tracking_tiers", **row)
+        if any(t != TIER_EXPECTED[name] for t in tiers) or launches != want_launches:
+            raise AssertionError(f"tracker on the {name} scene: tiers {tiers}, launches {launches}; "
+                                 f"expected {TIER_EXPECTED[name]}, {want_launches}")
+        _check_quality(name, quality, "tracker")
+        rows[name] = row
+        del video, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_realism(full) -> dict:
+    """``score_tracks`` on the batch the full pipeline's tail gave its model
+    (rebuilt from the pipeline's tracks, features and split), with the fused
+    kernel and with plain attention; ``save_visualization_npz``'s contract."""
+    pipe, inputs = full["pipeline"], full["tail_inputs"]
+    num_tracks = inputs["tracks"].shape[0]
+    num_support, num_queries = pipe.num_support_tracks, pipe.num_query_points
+    perm, ts = pipe.split_indices(num_tracks, num_queries, NUM_FRAMES)
+    with torch.inference_mode():
+        preds, batch, _ = fused_tail(
+            pipe.model, inputs["tracks"], inputs["visible"], inputs["dino_grid"], inputs["depth"],
+            perm, ts, num_support, num_queries, (HEIGHT, WIDTH))
+    same_as_pipeline = _rel_err(preds.tracks, inputs["predictions"].tracks)
+    if not same_as_pipeline["rel_err"] <= REBUILT_BATCH_RTOL:
+        raise AssertionError(f"realism: the rebuilt batch is not the pipeline's tail batch: "
+                             f"{same_as_pipeline} > {REBUILT_BATCH_RTOL}")
+    plain_model = TrackAutoEncoder3D(num_output_frames=NUM_FRAMES, dtype=torch.bfloat16,
+                                     fused_attention=False, device="cuda")
+    plain_model.load_state_dict(pipe.model.state_dict())
+    score_tracks(pipe.model, None, batch)  # warm
+    fused_masked_attention.launches = 0
+    got, ms = _timed_call(score_tracks, pipe.model, None, batch)
+    launches = fused_masked_attention.launches
+    want, plain_ms = _timed_call(score_tracks, plain_model, None, batch)
+    if fused_masked_attention.launches != launches:
+        raise AssertionError("the plain scorer launched the fused kernel")
+    with torch.inference_mode():
+        plain_preds = plain_model(batch)
+    forward_vs_plain = {name: _rel_err(getattr(preds, name), getattr(plain_preds, name))
+                        for name in ("tracks", "visible_logits")}
+    error_bound = math.sqrt(3.0) * PIPELINE_RTOL * plain_preds.tracks.abs().max().item()
+    score_gap = np.abs(got["coords_score"] - want["coords_score"])
+    score_limit = 10.0 * np.maximum(got["coords_score"], want["coords_score"]) * error_bound
+    diffs = {"realism_score": abs(got["realism_score"] - want["realism_score"]),
+             "mean_error": abs(got["mean_error"] - want["mean_error"]),
+             "point_error": float(np.abs(got["point_error"] - want["point_error"]).max()),
+             "coords_score_outside_limit": int((score_gap > score_limit).sum())}
+    limits = {"realism_score": REALISM_SCORE_RTOL * abs(want["realism_score"]),
+              "mean_error": error_bound, "point_error": error_bound, "coords_score_outside_limit": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "viz.npz")
+        coords = preds.tracks[0].transpose(0, 1)  # [T Q 3]
+        save_visualization_npz(path, coords, got["coords_score"], full["video"],
+                               visibs=batch["query_tracks_visible"][0, ..., 0].transpose(0, 1))
+        with np.load(path) as saved:
+            saved_shapes = {k: list(saved[k].shape) for k in saved.files}
+            saved_dtypes = sorted({str(saved[k].dtype) for k in saved.files})
+    expected_saved = {"coords": [NUM_FRAMES, num_queries, 3],
+                      "coords_score": [NUM_FRAMES, num_queries],
+                      "video": [NUM_FRAMES, 3, HEIGHT, WIDTH], "intrinsics": [3, 3],
+                      "extrinsics": [4, 4], "visibs": [NUM_FRAMES, num_queries]}
+    shapes = {k: list(np.shape(got[k])) for k in ("coords_score", "point_error")}
+    emit("realism", launches=launches, ms=ms, plain_ms=plain_ms, batch_tracks_vs_pipeline=same_as_pipeline,
+         forward_vs_plain=forward_vs_plain,
+         kernel={k: got[k] for k in ("realism_score", "mean_error", "visible_agreement")},
+         plain={k: want[k] for k in ("realism_score", "mean_error", "visible_agreement")},
+         diffs=diffs, limits=limits, shapes=shapes, saved=saved_shapes, saved_dtypes=saved_dtypes)
+    if launches != FORWARD_LAUNCHES or shapes != {"coords_score": [NUM_FRAMES, num_queries],
+                                                  "point_error": [num_queries, NUM_FRAMES]}:
+        raise AssertionError(f"realism: {launches} attention launches, shapes {shapes}")
+    if not all(np.isfinite(got[k]) for k in ("realism_score", "mean_error")):
+        raise AssertionError(f"realism: non-finite scores {got['realism_score'], got['mean_error']}")
+    bad = {k: v for k, v in forward_vs_plain.items() if not v["rel_err"] <= PIPELINE_RTOL}
+    if bad:
+        raise AssertionError(f"realism forward, kernel vs plain attention: {bad} > {PIPELINE_RTOL}")
+    if any(not diffs[k] <= limits[k] for k in diffs):
+        raise AssertionError(f"realism: kernel and plain scorers disagree: {diffs} > {limits}")
+    if saved_shapes != expected_saved or saved_dtypes != ["float32"]:
+        raise AssertionError(f"visualization file: {saved_shapes} {saved_dtypes}")
+    del plain_model, plain_preds, batch, preds
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms}
+
+
+def _pipeline_counters() -> dict:
+    return {"vit_attention": vit_attention, "attention": fused_masked_attention,
+            "bilinear": bilinear_kernel, "lk": lk_kernel.track_video_lk_kernel,
+            "matcher": cost_patches_multi}
+
+
+def phase_video_entry(scene, full) -> dict:
+    """The clean scene as an mp4 file through ``run_inference`` and the infer
+    CLI, on the card, with their launches and the reference's output files."""
+    counters = _pipeline_counters()
+    per_run = {"vit_attention": 2 * VIT_LAUNCHES, "attention": FORWARD_LAUNCHES,
+               "bilinear": TAIL_BILINEAR_LAUNCHES, "lk": CHUNK_LAUNCHES}
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "clean.mp4")
+        t0 = time.perf_counter()
+        save_video(scene["video"], path)
+        save_s = time.perf_counter() - t0
+        ckpt = os.path.join(tmp, "seeded_3dspa.npz")  # the flat a/b/c layout
+        np.savez(ckpt, **{k.replace(".", "/"): v.float().cpu().numpy()
+                          for k, v in full["pipeline"].model.state_dict().items()})
+        out_dir = os.path.join(tmp, "out")
+        runs = {
+            "run_inference": lambda: run_inference(
+                path, None, num_output_frames=NUM_FRAMES, tracking_grid_size=GRID, seed=SEED,
+                device="cuda"),
+            "cli": lambda: infer_cli.main([
+                f"--video_path={path}", f"--checkpoint_path={ckpt}", f"--output_dir={out_dir}",
+                f"--num_output_frames={NUM_FRAMES}", f"--tracking_grid_size={GRID}",
+                f"--seed={SEED}", "--device=cuda"]),
+        }
+        for name, run in runs.items():
+            for fn in counters.values():
+                fn.launches = 0
+            results, wall_ms = _timed_call(run)
+            launches = {k: fn.launches for k, fn in counters.items()}
+            preds = results["predictions"]
+            finite = bool(torch.isfinite(preds.tracks).all() and torch.isfinite(preds.visible_logits).all())
+            row = dict(entry=name, file_bytes=os.path.getsize(path), save_video_s=save_s,
+                       frames=list(results["video"].shape), fps=results["fps"], wall_ms=wall_ms,
+                       launches=launches, expected_launches=per_run, finite=finite,
+                       shape=list(preds.tracks.shape),
+                       timings_ms={k: v * 1e3 for k, v in results["timings"].items()})
+            if name == "cli":
+                with np.load(os.path.join(out_dir, "predictions.npz")) as saved:
+                    row["saved"] = {k: list(saved[k].shape) for k in saved.files}
+                with open(os.path.join(out_dir, "video_info.txt")) as f:
+                    row["video_info"] = f.read().splitlines()
+            emit("video_entry", **row)
+            if {k: launches[k] for k in per_run} != per_run or not finite:
+                raise AssertionError(f"video entry {name}: launches {launches}, expected {per_run} "
+                                     f"per run; finite={finite}")
+            if row["frames"] != [NUM_FRAMES, HEIGHT, WIDTH, 3] or row["shape"] != [1, 512, NUM_FRAMES, 3]:
+                raise AssertionError(f"video entry {name}: frames {row['frames']}, output {row['shape']}")
+            if name == "cli" and (row["saved"] != {
+                    "tracks_3d": [512, NUM_FRAMES, 3], "visible_logits": [512, NUM_FRAMES, 1],
+                    "query_tracks": [512, NUM_FRAMES, 3], "support_tracks": [2048, NUM_FRAMES, 3]}
+                    or row["video_info"][1:] != [f"Frames: {NUM_FRAMES}", "Query points: 512"]):
+                raise AssertionError(f"infer CLI output files wrong: {row}")
+            rows[name] = launches
+            del results, preds
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _harness_examples(directory) -> list:
+    """HARNESS_VIDEOS synthetic videos in the TAPVid-3D npz layout, written
+    to ``directory`` and read back through ``NpzDirectoryProvider``: smooth
+    3D tracks in front of the camera, occlusion spans, (x, y, t) queries
+    projected through the given intrinsics."""
+    rng = np.random.default_rng(SEED)
+    counts = rng.integers(HARNESS_TRACKS[0], HARNESS_TRACKS[1] + 1, HARNESS_VIDEOS)
+    fx, fy, cx, cy = HARNESS_INTRINSICS
+    t = np.arange(NUM_FRAMES, dtype=np.float64)[None, :, None] / NUM_FRAMES
+    for i, n in enumerate(counts):
+        start = np.stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n), rng.uniform(3, 8, n)], -1)
+        drift = rng.normal(0, 0.5, (n, 1, 3))
+        wobble = 0.2 * np.sin(2 * np.pi * (t * rng.uniform(1, 3, (n, 1, 3))
+                                           + rng.uniform(0, 1, (n, 1, 3))))
+        xyz = start[:, None] + drift * t + wobble
+        xyz[..., 2] = np.maximum(xyz[..., 2], 1.0)
+        visible = np.ones((n, NUM_FRAMES), bool)
+        gaps = rng.integers(0, NUM_FRAMES, (n, 2))
+        for j in range(n):  # one occlusion span per track
+            lo, hi = sorted(gaps[j])
+            visible[j, lo:hi] = rng.uniform() < 0.5
+        qt = rng.integers(0, NUM_FRAMES, n)
+        at_q = xyz[np.arange(n), qt]
+        visible[np.arange(n), qt] = True
+        queries = np.stack([fx * at_q[:, 0] / at_q[:, 2] + cx, fy * at_q[:, 1] / at_q[:, 2] + cy,
+                            qt.astype(np.float64)], -1)
+        np.savez(os.path.join(directory, f"video_{i:02d}.npz"),
+                 tracks_XYZ=xyz.astype(np.float32), visibility=visible.astype(np.float32),
+                 queries_xyt=queries.astype(np.float32),
+                 fx_fy_cx_cy=np.array(HARNESS_INTRINSICS, np.float32))
+    return list(NpzDirectoryProvider(directory)), counts
+
+
+def _harness_forwards(counts) -> list[tuple[int, int]]:
+    """(batch, bucket) of every forward ``evaluate_model`` makes: full groups
+    of HARNESS_BATCH, the rest padded to the next power of two."""
+    buckets = -(-np.asarray(counts) // HARNESS_BUCKET) * HARNESS_BUCKET
+    forwards = []
+    for bucket in sorted(set(buckets.tolist())):
+        videos = int((buckets == bucket).sum())
+        forwards += [(HARNESS_BATCH, bucket)] * (videos // HARNESS_BATCH)
+        if videos % HARNESS_BATCH:
+            forwards.append((min(1 << (videos % HARNESS_BATCH - 1).bit_length(), HARNESS_BATCH),
+                             bucket))
+    return forwards
+
+
+def _metric_diffs(a: dict, b: dict) -> dict:
+    """Largest absolute difference of the mean metrics, per scaling."""
+    return {s: max(abs(a[s][k] - b[s][k]) for k in a[s] if not k.endswith("_std")) for s in a}
+
+
+class _WarningRecords(logging.Handler):
+    """The messages of every warning a logger gives while attached."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def phase_eval_harness() -> dict:
+    """``evaluate_model`` at full width with the pipeline's model (bf16, the
+    fused kernel) passed through ``model=`` and with plain attention,
+    ``evaluate_video`` per video, and ``evaluate_model`` with the harness's
+    default model (JAX's: f32, plain attention; it launches no kernel)."""
+    model = TrackAutoEncoder3D(num_output_frames=NUM_FRAMES, use_dino=True, use_depth=True,
+                               dtype=torch.bfloat16, fused_attention=True, device="cuda")
+    plain = TrackAutoEncoder3D(num_output_frames=NUM_FRAMES, use_dino=True, use_depth=True,
+                               dtype=torch.bfloat16, fused_attention=False, device="cuda")
+    plain.load_state_dict(model.state_dict())
+    run = dict(num_output_frames=NUM_FRAMES, depth_scalings=HARNESS_SCALINGS,
+               track_bucket=HARNESS_BUCKET, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        examples, counts = _harness_examples(tmp)
+    forwards = _harness_forwards(counts)
+    buckets = sorted({b for _, b in forwards})
+    warnings = _WarningRecords()
+    logging.getLogger(harness.__name__).addHandler(warnings)
+    fused_masked_attention.launches = 0
+    batched, wall_ms = _timed_call(lambda: harness.evaluate_model(
+        None, examples, batch_size=HARNESS_BATCH, model=model, **run))
+    launches = fused_masked_attention.launches
+    per_video, per_video_ms = _timed_call(lambda: harness.aggregate_metrics(
+        [harness.evaluate_video(None, ex, model=model, **run) for ex in examples],
+        HARNESS_SCALINGS))
+    per_video_launches = fused_masked_attention.launches - launches
+    plain_batched, plain_ms = _timed_call(lambda: harness.evaluate_model(
+        None, examples, batch_size=HARNESS_BATCH, model=plain, **run))
+    default_batched, default_ms = _timed_call(lambda: harness.evaluate_model(
+        None, examples, batch_size=HARNESS_BATCH, **run))
+    if fused_masked_attention.launches != launches + per_video_launches:
+        raise AssertionError("the plain or default harness launched the fused kernel")
+    # Every batched forward's shape, kernel against plain attention.
+    forward_vs_plain = []
+    for b, n in forwards:
+        group = [ex for ex in examples
+                 if -(-ex["tracks_3d"].shape[0] // HARNESS_BUCKET) * HARNESS_BUCKET == n][:b]
+        parts = [harness.build_eval_batch(ex, NUM_FRAMES, HARNESS_BUCKET)[0] for ex in group]
+        stacked = {k: torch.cat([p[k] for p in parts] + [parts[-1][k]] * (b - len(parts)), dim=0)
+                   for k in parts[0]}
+        _, got = harness.evaluate_batch(None, stacked, NUM_FRAMES, model=model, device="cuda")
+        _, want = harness.evaluate_batch(None, stacked, NUM_FRAMES, model=plain, device="cuda")
+        forward_vs_plain.append(dict(batch=b, bucket=n, rtol=PIPELINE_RTOL, **{
+            name: _rel_err(getattr(got, name), getattr(want, name))
+            for name in ("tracks", "visible_logits")}))
+        del got, want, stacked
+    logging.getLogger(harness.__name__).removeHandler(warnings)
+    plans = []
+    for b, n in sorted(set(forwards)):
+        for name, items, seq, kv_len, masked, per_forward in (
+                ("encoder_self", b * n, 151, 151, True, 3), ("latents_self", b, 128, 128, False, 4),
+                ("latents_cross", b, 128, n, False, 4), ("decompress_self", b, 128, 128, False, 4),
+                ("readout_self", b * n, 129, 129, False, 4)):
+            plan = work_plan(items, seq, kv_len, 8, SMS)
+            plans.append(dict(batch=b, bucket=n, shape=name, B=items, S=seq, K=kv_len,
+                              masked=masked, per_forward=per_forward, work_items=plan["work"],
+                              grid=plan["grid"], key_chunks=plan["chunks"],
+                              cuda_kernels_per_call=plan["cuda_kernels"]))
+    kernel_vs_plain = _metric_diffs(batched, plain_batched)
+    batched_vs_per_video = _metric_diffs(batched, per_video)
+    runs = {"kernel": batched, "per_video": per_video, "plain": plain_batched,
+            "default": default_batched}
+    occlusion_accuracy = {name: {s: m[s]["occlusion_accuracy"] for s in m} for name, m in runs.items()}
+    row = dict(videos=HARNESS_VIDEOS, track_counts=counts.tolist(), buckets=buckets,
+               forwards=[{"batch": b, "bucket": n} for b, n in forwards], launches=launches,
+               expected_launches=FORWARD_LAUNCHES * len(forwards),
+               launches_per_forward=launches / len(forwards),
+               per_video_launches=per_video_launches, wall_ms=wall_ms,
+               wall_ms_per_video=wall_ms / HARNESS_VIDEOS, per_video_wall_ms=per_video_ms,
+               plain_wall_ms=plain_ms, default_model_wall_ms=default_ms, metrics=batched,
+               plain_metrics=plain_batched, per_video_metrics=per_video,
+               default_model_metrics=default_batched, kernel_vs_plain_max_diff=kernel_vs_plain,
+               batched_vs_per_video_max_diff=batched_vs_per_video, metric_atol=HARNESS_METRIC_ATOL,
+               # A reading of bf16 against f32 numerics, not a check.
+               default_vs_kernel_max_diff=_metric_diffs(default_batched, batched),
+               occlusion_accuracy=occlusion_accuracy, harness_warnings=warnings.messages,
+               forward_vs_plain=forward_vs_plain, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("eval_harness", **row)
+    for plan in plans:
+        emit("eval_harness_work_plan", **plan)
+    if buckets != [256, 512, 768, 1024] or HARNESS_BATCH not in {b for b, _ in forwards}:
+        raise AssertionError(f"harness data gives buckets {buckets}, forwards {forwards}")
+    if launches != FORWARD_LAUNCHES * len(forwards) or per_video_launches != FORWARD_LAUNCHES * HARNESS_VIDEOS:
+        raise AssertionError(f"harness: {launches} attention launches over {len(forwards)} forwards "
+                             f"and {per_video_launches} per video")
+    finite = all(np.isfinite(v) for m in runs.values() for s in m.values() for v in s.values())
+    if not finite or any(set(m) != set(HARNESS_SCALINGS) for m in runs.values()):
+        raise AssertionError(f"harness metrics: {runs}")
+    # The zero-metrics fallback logs a warning and gives occlusion_accuracy 0.
+    if warnings.messages or not all(v > 0 for m in occlusion_accuracy.values() for v in m.values()):
+        raise AssertionError(f"harness metrics fell back: {warnings.messages}, {occlusion_accuracy}")
+    bad = [row for row in forward_vs_plain
+           if not all(row[name]["rel_err"] <= PIPELINE_RTOL for name in ("tracks", "visible_logits"))]
+    if bad:
+        raise AssertionError(f"harness forward, kernel vs plain attention: {bad}")
+    for what, diffs in (("kernel vs plain", kernel_vs_plain), ("batched vs per video", batched_vs_per_video)):
+        if any(not d <= HARNESS_METRIC_ATOL for d in diffs.values()):
+            raise AssertionError(f"harness metrics, {what}: {diffs} > {HARNESS_METRIC_ATOL}")
+    del model, plain
+    torch.cuda.empty_cache()
+    return {"launches": launches, "forwards": len(forwards), "wall_ms": wall_ms}
 
 
 def phase_quant_kernel() -> dict:
@@ -1445,6 +1889,13 @@ def main(argv: list[str]) -> int:
     full = phase_pipeline_full(scenes["clean"])
     if "--profile" in argv:
         profile_pipeline(full["pipeline"], scenes["clean"]["video"], "upload_tracking_features")
+    tier_rows = phase_tracking_tiers()
+    realism = phase_realism(full)
+    video_entry = phase_video_entry(scenes["clean"], full)
+    full_launches = full["launches"]
+    del full
+    torch.cuda.empty_cache()
+    harness_row = phase_eval_harness()
     bound_by = "bytes" if totals["bytes_ms"] >= totals["flops_ms"] else "operations"
     kernels = [{
         "name": "fused_masked_attention",
@@ -1461,6 +1912,12 @@ def main(argv: list[str]) -> int:
         "library_ms": totals["library_ms"],
         "bf16_out_ms": totals["bf16_out_ms"],
         "per": "one forward: the 19 launches at their main-path shapes, f32 output",
+        "launches_on_new_paths": {
+            "eval_harness": harness_row["launches"],
+            "eval_harness_forwards": harness_row["forwards"],
+            "realism": realism["launches"],
+            "video_entry": {k: v["attention"] for k, v in video_entry.items()},
+        },
     }]
     main_lk = lk["pipeline"]
     kernels.append({
@@ -1481,6 +1938,13 @@ def main(argv: list[str]) -> int:
                 f"tracks it: {CHUNK_LAUNCHES} chunk launches of {main_lk['chunk_frames']} frames, "
                 "149 frame pairs (plain_ms: one 150-frame call of the plain version); launches "
                 "counted over the noisy-video pipeline run"),
+        "cost_volume_launch_ms": lk["corr_rescue"]["ms"],
+        "launches_on_new_paths": {
+            "tracking_tiers": {k: {"lk": v["launches"]["lk"],
+                                   "lk_cost_volume": v["launches"]["lk_cost_volume"],
+                                   "runs": v["runs"]} for k, v in tier_rows.items()},
+            "video_entry": {k: v["lk"] for k, v in video_entry.items()},
+        },
     })
     kernels.append({
         "name": "cost_patches_multi",
@@ -1505,7 +1969,7 @@ def main(argv: list[str]) -> int:
         "route": "cuda",
         "source": "tdspa_torch/csrc/vit_attention.cu",
         "replaces": "tdspa/kernels/attention.py:214",
-        "launches": full["launches"]["vit_attention"],
+        "launches": full_launches["vit_attention"],
         "max_abs_err": vit_totals["max_abs_err"],
         "ms": vit_totals["ms"],
         "plain_ms": vit_totals["plain_ms"],
@@ -1515,6 +1979,8 @@ def main(argv: list[str]) -> int:
         "per": (f"one 150-frame video: {VIT_LAUNCHES} launches at (8,1297,12,64) for DINO and "
                 f"{VIT_LAUNCHES} at (8,1370,12,64) for depth, f32 output; launches counted over "
                 f"{RUNS} full-pipeline runs"),
+        "launches_on_new_paths": {"video_entry": {k: v["vit_attention"]
+                                                  for k, v in video_entry.items()}},
     })
     kernels.append({
         "name": "quant_matmul",
@@ -1571,6 +2037,7 @@ def main(argv: list[str]) -> int:
         "library": BILINEAR_LIBRARY,
         "per": (f"one fused_tail: {TAIL_BILINEAR_LAUNCHES} launches (the DINO grid once, the "
                 f"depth maps twice), f32 output; launches counted over {RUNS} pipeline runs"),
+        "launches_on_new_paths": {"video_entry": {k: v["bilinear"] for k, v in video_entry.items()}},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

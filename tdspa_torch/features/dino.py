@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import functools
 import logging
+import os
 
 import numpy as np
 import torch
@@ -40,11 +41,19 @@ _NAME_TO_PRESET = {
 
 def load_dinov2_params(model_name: str, config: ViTConfig):
     """HF-cached weights -> flax tree; None when unavailable. Reads the local
-    cache only: there is no download."""
+    cache only: there is no download. The snapshot is looked up in the cache
+    first and loaded from its directory, because ``from_pretrained`` with a
+    hub name can still send requests (for an adapter config) even with
+    ``local_files_only``."""
     try:
+        from huggingface_hub import try_to_load_from_cache
         import transformers
 
-        hf_model = transformers.AutoModel.from_pretrained(model_name, local_files_only=True)
+        config_path = try_to_load_from_cache(model_name, "config.json")
+        if not isinstance(config_path, str):
+            raise FileNotFoundError(f"{model_name} is not in the local Hugging Face cache")
+        hf_model = transformers.AutoModel.from_pretrained(os.path.dirname(config_path),
+                                                          local_files_only=True)
         return convert_hf_dinov2_params(hf_model.state_dict(), config)
     except Exception as e:  # noqa: BLE001 - not installed / not cached
         logger.warning("Could not load %s (%s); DINO features will use RANDOM weights",

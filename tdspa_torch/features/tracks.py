@@ -10,7 +10,8 @@ A provider maps a ``[T H W 3]`` video to ``{'tracks': [N T 2],
   ``track_chunks`` for the streamed upload.
 * ``StaticGridProvider`` and ``PrecomputedTrackProvider``: host providers.
 
-``CoTrackerProvider`` (an external package) is not ported.
+``extract_2d_tracks`` is the reference-compatible entry. ``CoTrackerProvider``
+(it needs the external ``cotracker`` package) is not ported.
 """
 
 from __future__ import annotations
@@ -392,3 +393,17 @@ class PyramidalLKTracker:
         """True if the classical pass collapsed (marks an implausibly large
         share of pairs occluded)."""
         return cls._occluded_frac(visible) > matcher_lib.AUTO_LK_OCCLUDED_FRAC
+
+
+def extract_2d_tracks(video, provider=None, grid_size: int = 64, device="cuda") -> dict:
+    """Reference-compatible entry: ``provider(video)``, by default the port's
+    ``PyramidalLKTracker(grid_size=grid_size)`` on ``device``.
+
+    The JAX function tries CoTracker first when the ``cotracker`` package
+    imports; the port has no CoTracker provider (ROADMAP.md), so it goes
+    straight to LK. ``device`` ("cuda" unless the caller asks for the CPU)
+    is used only to build the default tracker.
+    """
+    if provider is None:
+        provider = PyramidalLKTracker(grid_size=grid_size, device=device)
+    return provider(video)

@@ -34,3 +34,13 @@ def params_to_flax(state_dict) -> dict:
             node = node.setdefault(part, {})
         node[leaf] = value.detach().cpu().numpy()
     return tree
+
+
+def load_params(model: torch.nn.Module, params) -> None:
+    """Load ``params`` into ``model``: a nested flax tree (the JAX package's
+    ``params`` or ``load_params_tree``), a flat ``state_dict`` (the port's
+    ``load_checkpoint``), or None to keep the model's own weights."""
+    if params is None:
+        return
+    flat = all(isinstance(v, torch.Tensor) for v in params.values())
+    model.load_state_dict(params if flat else params_from_flax(params))

@@ -2,6 +2,8 @@
 ``tdspa/infer/pipeline.py``: ``fused_tail``, ``InferencePipeline`` and
 ``save_results``).
 
+``run(video_path)`` decodes a video file with OpenCV and calls
+``run_on_frames``; ``run_inference`` builds the pipeline and does both.
 The default front ends are the port's own: ``PyramidalLKTracker`` (LK
 kernel ``tdspa_torch/csrc/lk.cu``, matcher kernel ``csrc/matcher.cu``),
 ``DinoFeatureExtractor`` and ``VideoDepthEstimator`` (their ViT attention in
@@ -38,6 +40,7 @@ from tdspa_torch.features.dino import DinoFeatureExtractor
 from tdspa_torch.features.tracks import PyramidalLKTracker
 from tdspa_torch.infer.checkpoint import check_params_structure, load_checkpoint
 from tdspa_torch.infer.convert import params_from_flax
+from tdspa_torch.infer.video import load_video
 from tdspa_torch.models import TrackAutoEncoder3D
 from tdspa_torch.ops.geometry import (
     lift_2d_to_3d,
@@ -356,10 +359,18 @@ class InferencePipeline:
         }
 
     def run(self, video_path: str) -> dict:
-        raise NotImplementedError(
-            "run(video_path): video decoding comes with the pipeline slice "
-            "(ROADMAP.md); call run_on_frames with a [T H W 3] uint8 array"
-        )
+        """Full pipeline on a video file: its first ``num_output_frames``
+        frames, decoded on the host with OpenCV."""
+        video, fps = load_video(video_path, max_frames=self.num_output_frames)
+        logger.info("Loaded video: %d frames, %dx%d, %.2f fps",
+                    video.shape[0], video.shape[1], video.shape[2], fps)
+        return self.run_on_frames(video, fps)
+
+
+def run_inference(video_path: str, checkpoint_path: str | None, **kwargs) -> dict:
+    """Reference-compatible entry: ``InferencePipeline(checkpoint_path,
+    **kwargs).run(video_path)``; ``device`` defaults to "cuda"."""
+    return InferencePipeline(checkpoint_path=checkpoint_path, **kwargs).run(video_path)
 
 
 def _numpy(x) -> np.ndarray:

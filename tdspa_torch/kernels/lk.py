@@ -17,7 +17,9 @@ span <= 16 limit). So at ``input_scale=0.5`` on 512x512 frames it keeps the
 
 For CPU tensors the wrapper runs the plain version
 (``tdspa_torch.ops.lk.track_video_lk``); for CUDA tensors it launches the
-kernel or raises. ``track_video_lk_kernel.launches`` counts launches.
+kernel or raises. ``track_video_lk_kernel.launches`` counts launches, and
+``track_video_lk_kernel.cost_volume_launches`` those of them with the cost
+volume on (``corr_radius`` > 0, the rescue tier's configuration).
 """
 
 from __future__ import annotations
@@ -100,6 +102,7 @@ def track_video_lk_kernel(
 
 
 track_video_lk_kernel.launches = 0
+track_video_lk_kernel.cost_volume_launches = 0
 
 
 @dataclasses.dataclass
@@ -193,4 +196,6 @@ def launch(a: LaunchArgs):
     if rc != 0:
         raise RuntimeError(f"LK kernel launch failed: CUDA error {rc}")
     track_video_lk_kernel.launches += 1
+    if a.corr_radius > 0:
+        track_video_lk_kernel.cost_volume_launches += 1
     return tracks, vis, vel

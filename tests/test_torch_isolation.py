@@ -48,7 +48,11 @@ def test_port_imports_without_jax_tdspa_or_triton():
                  "tdspa_torch.features.depth", "tdspa_torch.core.layers",
                  "tdspa_torch.ops.resize", "tdspa_torch.core.quant",
                  "tdspa_torch.kernels.quant_matmul", "tdspa_torch.kernels.block",
-                 "tdspa_torch.kernels.bilinear"):
+                 "tdspa_torch.kernels.bilinear", "tdspa_torch.infer.video",
+                 "tdspa_torch.utils.profiling", "tdspa_torch.cli.flags", "tdspa_torch.cli.infer",
+                 "tdspa_torch.cli.evaluate", "tdspa_torch.eval.tapvid3d_metrics",
+                 "tdspa_torch.eval.realism", "tdspa_torch.eval.harness",
+                 "tdspa_torch.data.providers"):
         assert name in report["modules"]
 
 

@@ -281,11 +281,11 @@ def test_pipeline_refuses_what_later_slices_bring(tmp_path):
     for kwargs in ({"mesh": object()}, {"tail_artifact": "tail.shlo"}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             InferencePipeline(model=model, device="cpu", **kwargs)
-    # DINO and depth are the port's own now (test below); decoding a video
-    # file is what a later slice brings.
+    # DINO and depth are the port's own now (test below), and so is decoding
+    # a video file (tests/test_torch_video.py): a missing file is refused.
     pipe = InferencePipeline(model=model, device="cpu", tracking_grid_size=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipe.run("video.mp4")
+    with pytest.raises(ValueError, match="Could not open video file"):
+        pipe.run(str(tmp_path / "video.mp4"))
 
 
 # The lazily built front ends at tiny size: a one-layer DINO ViT of the

@@ -1,7 +1,9 @@
 """tdspa_torch's PyramidalLKTracker against tdspa's, both on the CPU with the
-adaptive ``matcher="auto"`` policy, on four tiny synthetic scenes that each
+adaptive ``matcher="auto"`` policy, on five tiny synthetic scenes that each
 engage a different tier: clean (none), degraded (the matcher), fast pan (the
-cost-volume rescue) and camera roll (roll-stabilise). Then the pipeline's
+cost-volume rescue), camera roll (roll-stabilise) and heavy noise over
+natural texture (the rescue runs and is discarded, then the denoise re-track
+is kept). Then the pipeline's
 streamed branch end to end on the CPU, and the tracker's device default.
 
 Agreement: the same tier decisions; visibility agreement >= 99 %; tracks
@@ -36,12 +38,15 @@ SCENES = {
     "pan": dict(num_frames=24, height=128, width=128, grid_size=8, pan=(8, 0)),
     "roll": dict(num_frames=24, height=128, width=128, grid_size=8,
                  rot_rate=float(np.deg2rad(2.5))),
+    "denoise": dict(num_frames=12, height=96, width=128, grid_size=8, noise_sigma=10.0,
+                    contrast=0.7, texture="natural"),
 }
 EXPECTED_TIERS = {
     "clean": {"stabilize": None, "rescue": None, "denoise": None, "matcher": None},
     "degraded": {"stabilize": None, "rescue": None, "denoise": None, "matcher": True},
     "pan": {"stabilize": None, "rescue": True, "denoise": None, "matcher": None},
     "roll": {"stabilize": True, "rescue": None, "denoise": None, "matcher": None},
+    "denoise": {"stabilize": None, "rescue": False, "denoise": True, "matcher": None},
 }
 POLICY = dict(grid_size=8, fb_threshold=-1.0, iterations=3, matcher="auto")
 

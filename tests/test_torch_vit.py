@@ -141,18 +141,25 @@ def test_extractor_matches_jax_on_a_size_that_is_not_a_patch_multiple(tiny_jax_e
 
 def test_extractor_refuses_to_fetch_weights(monkeypatch, caplog):
     """No params and no local HF cache: random weights from the seed, with a
-    warning, and no download (the loader reads the local cache only)."""
+    warning, and no download: without a cached snapshot ``from_pretrained``
+    is not called at all (with a hub name it can send requests even under
+    ``local_files_only``); a cached one loads from its local directory."""
     calls = []
 
     def fake_from_pretrained(name, **kwargs):
-        calls.append(kwargs)
-        raise OSError("not cached")
+        calls.append((name, kwargs))
+        raise OSError("not loadable")
 
     transformers = pytest.importorskip("transformers")
+    huggingface_hub = pytest.importorskip("huggingface_hub")
     monkeypatch.setattr(transformers.AutoModel, "from_pretrained", fake_from_pretrained)
+    monkeypatch.setattr(huggingface_hub, "try_to_load_from_cache", lambda name, file: None)
     a = DinoFeatureExtractor(vit_config=ViTConfig(**TINY), device="cpu", seed=3)
+    assert calls == []
+    monkeypatch.setattr(huggingface_hub, "try_to_load_from_cache",
+                        lambda name, file: f"/hf-cache/snapshots/abc/{file}")
     b = DinoFeatureExtractor(vit_config=ViTConfig(**TINY), device="cpu", seed=3)
-    assert calls == [{"local_files_only": True}] * 2
+    assert calls == [("/hf-cache/snapshots/abc", {"local_files_only": True})]
     assert "RANDOM weights" in caplog.text
     for (name, x), y in zip(a.model.state_dict().items(), b.model.state_dict().values()):
         assert torch.equal(x, y), name
