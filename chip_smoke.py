@@ -111,9 +111,32 @@ and the script exits non-zero:
    video, the forward against plain attention, the metrics against plain
    attention and batched against per video.
 
+19. trajan2d: the default 2D ``TrackAutoEncoder`` (68,333,080 parameters,
+   seeded, bf16 compute, fused attention) at T = 150, B = 1, 2048 support
+   and 2048 query tracks: 21 attention launches per forward, outputs within
+   5e-2 of the range of the same model on plain attention.
+20. attention_backward: ``fused_attention_fn`` (the kernel forward, JAX's
+   recompute backward) at the training path's shapes (3D encoder, latents'
+   cross-attention, readout, 2D encoder; B = 1): dq, dk, dv against autograd
+   through the plain ``xla_reference``; forward and backward ms beside
+   SDPA's forward + backward (timed only).
+21. train_3d and train_2d: ``train()`` with each default model at full width
+   (bf16, fused attention, encoder and decoder chunks of 256, T = 150, 2048
+   support and 2048 query tracks from ``SyntheticTrackProvider``, batch 2, 3
+   steps, a checkpoint per step), the resume from step 2 against the
+   uninterrupted step 3; then the step alone: step ms, peak memory,
+   attention launches per step (each chunk's forward and its recompute),
+   one accumulated step (2 microbatches) against the full step, the first
+   step's loss and gradients against plain attention (bf16, and f32 as the
+   yardstick of bf16 noise), and where a step's time goes.
+22. train_cli: ``python -m tdspa_torch.cli.train`` per model type on the
+   synthetic fallback: JAX's JSONL keys, and the step-2 checkpoint through
+   ``load_checkpoint`` gives the logged eval loss.
+
 With ``--profile``, one more run of each full-width pipeline's stage (and
-of each feature extractor) under ``torch.profiler`` reports the device's
-busy time and the kernels that take it.
+of each feature extractor, and one train step of each model) under
+``torch.profiler`` reports the device's busy time and the kernels that take
+it.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on its
 main-path run and its totals per forward or video, and as the last line
@@ -123,11 +146,13 @@ Without a GPU it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import inspect
 import json
 import logging
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -155,9 +180,11 @@ from tdspa_torch.kernels import quant_matmul as qmm
 from tdspa_torch.kernels.attention import (
     VIT_HEAD,
     attention_reference,
+    fused_attention_fn,
     fused_masked_attention,
     vit_attention,
     work_plan,
+    xla_reference,
 )
 from tdspa_torch.kernels.bilinear import bilinear_sample as bilinear_kernel
 from tdspa_torch.kernels.bilinear import bilinear_sample_reference
@@ -170,10 +197,28 @@ from tdspa_torch.kernels.block import (
     launch_stages as block_launch_stages,
 )
 from tdspa_torch.kernels.matcher import cost_patches_multi, cost_patches_reference
-from tdspa_torch.models import TrackAutoEncoder3D
+from tdspa_torch.data.batch_prep import prepare_2d_batch, prepare_3d_batch
+from tdspa_torch.data.prefetch import to_device
+from tdspa_torch.data.providers import (
+    SyntheticTrackProvider,
+    load_kubric3d_dataset,
+    load_tapvid_dataset,
+)
+from tdspa_torch.infer.checkpoint import TrainCheckpointer, load_checkpoint
+from tdspa_torch.models import TrackAutoEncoder, TrackAutoEncoder3D
 from tdspa_torch.ops.geometry import bilinear_sample
 from tdspa_torch.ops.lk import to_gray, track_video_lk
 from tdspa_torch.ops.yuv import rgb_to_yuv420
+from tdspa_torch.train.losses import compute_loss_2d, compute_loss_3d
+from tdspa_torch.train.loop import train
+from tdspa_torch.train.metrics import MetricLogger
+from tdspa_torch.train.state import build_model, create_model_state
+from tdspa_torch.train.step import (
+    loss_and_grads,
+    make_eval_step,
+    make_grad_accum_step,
+    make_train_step,
+)
 from tdspa_torch.utils.synthetic_video import make_tracking_scene
 
 SEED = 0
@@ -393,6 +438,53 @@ HARNESS_METRIC_ATOL = 0.02
 # realism_score, relative to its own value: 1e-2, five times the 2.0e-3 of
 # the first reading (2.1e-6 on 1.05e-3, NVIDIA H100 80GB HBM3, 700 W).
 REALISM_SCORE_RTOL = 1e-2
+# Training (phases trajan2d .. train_cli). The default 2D TRAJAN: 68,333,080
+# parameters (counted from the flax init); 21 attention launches per
+# unchunked forward (2 encoder + 6 x (self + cross) + 3 decompress + 4 readout).
+TRAJAN_PARAMS, SPA3D_PARAMS = 68_333_080, 109_138_296
+TRAJAN_FORWARD_LAUNCHES = 2 + 6 * 2 + 3 + 4
+TRAIN_TRACKS, TRAIN_SUPPORT, TRAIN_QUERIES, TRAIN_BATCH = 4096, 2048, 2048, 2
+TRAIN_CHUNK, TRAIN_STEPS, TRAIN_LR = 256, 3, 1e-4
+# Loss of one accumulated step (2 microbatches) vs the full step: the same
+# sums regrouped, but each microbatch draws the bottleneck's fixed dither for
+# its own shape, as in JAX, whose test holds the two to 1e-4 relative
+# (tests/unit/test_train.py).
+ACCUM_LOSS_RTOL = 1e-4
+# Their parameters after the update: elementwise within one bf16 step (2^-8
+# relative) plus twice the step's learning rate (Adam normalises each
+# gradient, so an element whose gradient is noise can move by up to the
+# rate either way); and their updates (new - old parameters) within 5e-2
+# relative L2 over all parameters.
+ACCUM_PARAM_RTOL, ACCUM_UPDATE_REL_L2 = 2.0 ** -8, 5e-2
+# First step, kernel vs plain attention (same bf16 model and batch): the
+# kernel scales f32 logits by 1/sqrt(D), the plain path divides bf16 q by a
+# bf16 sqrt(D) (0.15 % apart at D = 96), and both round P differently, in
+# every attention of the forward and its recompute. Loss within 1e-2
+# relative; gradients within 5e-2 relative L2, over all parameters and per
+# parameter. bf16 compute alone moves a parameter's gradient by per cents
+# from the same model's f32 gradient, so each parameter's kernel-path
+# gradient is also held to the f32 one: no further from it than the plain
+# bf16 path's, plus 5e-2.
+PLAIN_LOSS_RTOL, PLAIN_GRAD_REL_L2 = 1e-2, 5e-2
+# Resume from the step-2 checkpoint vs the uninterrupted step 3: the same
+# computation on the same card, which can differ only in the order of the
+# atomic adds of the backward's scatters (the time-feature gather); the two
+# step-3 updates within 1e-2 relative L2.
+RESUME_UPDATE_REL_L2 = 1e-2
+# The train CLI's eval loss at step 2 vs the same 10 validation batches
+# through its saved checkpoint here: the same f32 model and inputs on the
+# same card; cuBLAS may pick another algorithm in another process.
+CLI_EVAL_RTOL = 1e-4
+# Attention backward (fused_attention_fn vs autograd through the plain
+# xla_reference on the same inputs): the backward is that autograd, so only
+# the order of the card's reductions can differ.
+BACKWARD_ATOL = 1e-5
+# (name, B, S, K, H, D, masked) at B = 1 of the model: the 3D encoder, the
+# latents' cross-attention, the readout and the 2D encoder.
+BACKWARD_SHAPES = [("encoder_3d", 2048, 151, 151, 8, 96, "rows"),
+                   ("latents_cross", 1, 128, 2048, 8, 96, False),
+                   ("readout", 2048, 129, 129, 8, 96, False),
+                   ("encoder_2d", 2048, 150, 150, 8, 64, "rows")]
 # The batch rebuilt from the pipeline's tracks, features and split against
 # the pipeline's own tail: the same model and kernels on the same inputs
 # (bit-equal in the first reading).
@@ -1861,6 +1953,493 @@ def profile_pipeline(pipe, video, stage: str) -> None:
     phase_profile(stage, lambda: run(video), wall_ms=lambda: pipe.timings[stage] * 1e3)
 
 
+def event_ms(fn, iters: int) -> float:
+    """Mean time of ``fn`` over ``iters`` calls between two CUDA events (no
+    graph: for autograd work, whose host side is part of the cost)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def stack_layers(model_type: str) -> tuple[int, int, int, int]:
+    """(encoder, latent, decompress, readout) layers of a default model."""
+    return (3, 4, 4, 4) if model_type == "3dspa" else (2, 6, 3, 4)
+
+
+def step_launches(model_type: str, microbatches: int = 1) -> dict:
+    """Attention launches of one training step: each encoder chunk and each
+    decoder chunk runs once forward and once more when the backward
+    recomputes it (JAX's remats); the latents' stack (self + cross per layer)
+    runs once. The backward itself launches nothing (``xla_reference``)."""
+    enc, lat, dec, read = stack_layers(model_type)
+    enc_chunks, dec_chunks = TRAIN_SUPPORT // TRAIN_CHUNK, TRAIN_QUERIES // TRAIN_CHUNK
+    forward = enc * enc_chunks + 2 * lat + (dec + read) * dec_chunks
+    recompute = enc * enc_chunks + (dec + read) * dec_chunks
+    return {"forward": microbatches * forward, "recompute": microbatches * recompute,
+            "step": microbatches * (forward + recompute)}
+
+
+def attention_step_costs(model_type: str) -> dict:
+    """Device ms per training step of the attention kernel (forward and
+    recompute launches) and of its backward (autograd through
+    ``xla_reference``, once per attention call the loss depends on), from
+    each training shape timed alone times its count per step."""
+    enc, lat, dec, read = stack_layers(model_type)
+    depth = 96 if model_type == "3dspa" else 64
+    seq = NUM_FRAMES + (1 if model_type == "3dspa" else 0)
+    enc_chunks, dec_chunks = TRAIN_SUPPORT // TRAIN_CHUNK, TRAIN_QUERIES // TRAIN_CHUNK
+    items = TRAIN_BATCH * TRAIN_CHUNK
+    # (name, B, S, K, masked, forward launches per step, recompute launches
+    # per step); each attention call the loss depends on is differentiated
+    # once: the recomputed ones, and the latents' (not rematerialised).
+    shapes = [("encoder", items, seq, seq, True, enc * enc_chunks, enc * enc_chunks),
+              ("latents_self", TRAIN_BATCH, 128, 128, False, lat, 0),
+              ("latents_cross", TRAIN_BATCH, 128, TRAIN_SUPPORT, False, lat, 0),
+              ("decompress", TRAIN_BATCH, 128, 128, False, dec * dec_chunks, dec * dec_chunks),
+              ("readout", items, 129, 129, False, read * dec_chunks, read * dec_chunks)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows, forward_ms, recompute_ms, backward_ms = [], 0.0, 0.0, 0.0
+    for name, batch, s_len, k_len, masked, launches, recomputes in shapes:
+        q, k, v, mask = attention_inputs(gen, batch, s_len, k_len, 8, depth, masked)
+        g = torch.randn(q.shape, generator=gen, device="cuda")
+        one = cuda_ms(lambda: fused_masked_attention(q, k, v, mask), iters=10)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        bwd = event_ms(lambda: torch.autograd.grad(xla_reference(q, k, v, mask), (q, k, v), g),
+                       3)
+        rows.append(dict(shape=name, B=batch, S=s_len, K=k_len, kernel_ms=one,
+                         forward_launches=launches, recompute_launches=recomputes,
+                         recompute_backward_ms=bwd))
+        forward_ms += launches * one
+        recompute_ms += recomputes * one
+        backward_ms += launches * bwd
+        del q, k, v, mask, g
+    torch.cuda.empty_cache()
+    return {"kernel_forward_ms": forward_ms, "kernel_recompute_ms": recompute_ms,
+            "recompute_backward_ms": backward_ms, "shapes": rows}
+
+
+def train_batch(model_type: str, batch: int | None = None) -> dict:
+    """A prepared batch (of ``TRAIN_BATCH`` unless given) of
+    ``SyntheticTrackProvider`` examples at full width (4096 tracks, 2048
+    support and 2048 query tracks, 150 frames; 3D with DINO and depth
+    features), on the card."""
+    t0 = time.perf_counter()
+    batch = batch or TRAIN_BATCH
+    three_d = model_type == "3dspa"
+    provider = SyntheticTrackProvider(num_videos=batch, num_tracks=TRAIN_TRACKS,
+                                      num_frames=NUM_FRAMES, num_coords=3 if three_d else 2,
+                                      with_features=three_d, seed=SEED)
+    parts = []
+    for i in range(batch):
+        example = provider[i]
+        if three_d:
+            parts.append(prepare_3d_batch(example, TRAIN_SUPPORT, TRAIN_QUERIES, NUM_FRAMES,
+                                          seed=i))
+        else:
+            parts.append(prepare_2d_batch(example, TRAIN_SUPPORT, TRAIN_QUERIES, NUM_FRAMES,
+                                          seed=i))
+        del example
+    host = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    out = to_device(host, torch.device("cuda"))
+    torch.cuda.synchronize()
+    emit("train_data", model_type=model_type, seconds=time.perf_counter() - t0,
+         shapes={k: list(v.shape) for k, v in out.items()},
+         gb=sum(v.numel() * v.element_size() for v in out.values()) / 1e9)
+    return out
+
+
+def phase_trajan2d() -> dict:
+    """The default 2D TRAJAN (seeded, bf16 compute, fused attention) at
+    T = 150, B = 1, 2048 support and 2048 query tracks: 21 attention launches
+    per forward; outputs against the same model on plain attention."""
+    torch.cuda.reset_peak_memory_stats()
+    batch = train_batch("trajan", batch=1)
+    del batch["query_tracks"], batch["query_tracks_visible"]
+    model = TrackAutoEncoder(num_output_frames=NUM_FRAMES, dtype=torch.bfloat16,
+                             fused_attention=True, device="cuda", seed=SEED)
+    params = sum(p.numel() for p in model.parameters())
+    fused_masked_attention.launches = 0
+    times, out = [], None
+    with torch.inference_mode():
+        for _ in range(RUNS):
+            out, ms = _timed_call(model, batch)
+            times.append(ms)
+    launches = fused_masked_attention.launches
+    plain = TrackAutoEncoder(num_output_frames=NUM_FRAMES, dtype=torch.bfloat16,
+                             device="cuda", seed=SEED)
+    plain.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        want, plain_ms = _timed_call(plain, batch)
+    if fused_masked_attention.launches != launches:
+        raise AssertionError("the plain 2D model launched the fused kernel")
+    shapes = {name: list(getattr(out, name).shape)
+              for name in ("tracks", "visible_logits", "certain_logits")}
+    finite = all(bool(torch.isfinite(getattr(out, name)).all()) for name in shapes)
+    agreement = {name: {**_rel_err(getattr(out, name), getattr(want, name)), "rtol": PIPELINE_RTOL}
+                 for name in shapes}
+    emit("trajan2d", params=params, launches=launches, launches_per_forward=launches / RUNS,
+         forward_ms=times, forward_median_ms=statistics.median(times[1:]), plain_ms=plain_ms,
+         shapes=shapes, finite=finite, agreement=agreement,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    expected = {"tracks": [1, TRAIN_QUERIES, NUM_FRAMES, 2],
+                "visible_logits": [1, TRAIN_QUERIES, NUM_FRAMES, 1],
+                "certain_logits": [1, TRAIN_QUERIES, NUM_FRAMES, 1]}
+    if params != TRAJAN_PARAMS or shapes != expected or not finite:
+        raise AssertionError(f"2D model wrong: {params} parameters, {shapes}, finite={finite}")
+    if launches != TRAJAN_FORWARD_LAUNCHES * RUNS:
+        raise AssertionError(f"{launches} attention launches in {RUNS} 2D forwards, expected "
+                             f"{TRAJAN_FORWARD_LAUNCHES * RUNS}")
+    bad = {k: v for k, v in agreement.items() if not v["rel_err"] <= PIPELINE_RTOL}
+    if bad:
+        raise AssertionError(f"2D model: kernel and plain attention disagree: {bad}")
+    return {"launches": launches, "forward_median_ms": statistics.median(times[1:])}
+
+
+def phase_attention_backward() -> dict:
+    """``fused_attention_fn`` (kernel forward, JAX's recompute backward) at the
+    training path's shapes: dq, dk, dv against autograd through the plain
+    ``xla_reference`` on the same inputs, the output against
+    ``attention_reference``; forward and backward ms beside SDPA's forward +
+    backward (timed only)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {}
+    for name, batch, seq, kv_len, heads, depth, masked in BACKWARD_SHAPES:
+        torch.cuda.reset_peak_memory_stats()
+        q, k, v, mask = attention_inputs(gen, batch, seq, kv_len, heads, depth, masked)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        g = torch.randn((batch, seq, heads, depth), generator=gen, device="cuda")
+        before = fused_masked_attention.launches
+        out = fused_attention_fn(q, k, v, mask)
+        grads = torch.autograd.grad(out, (q, k, v), g)
+        launched = fused_masked_attention.launches - before
+        want_out = attention_reference(q.detach(), k.detach(), v.detach(), mask)
+        plain = xla_reference(q, k, v, mask)
+        want = torch.autograd.grad(plain, (q, k, v), g)
+        errs = {n: (a.float() - b.float()).abs().max().item()
+                for n, a, b in zip(("dq", "dk", "dv"), grads, want)}
+        scales = {n: b.float().abs().max().item() for n, b in zip(("dq", "dk", "dv"), want)}
+        out_err = (out - want_out).abs().max().item()
+        finite = all(bool(torch.isfinite(x).all()) for x in (out, *grads))
+        del out, grads, want_out, plain, want
+
+        def forward():
+            with torch.no_grad():
+                fused_attention_fn(q, k, v, mask)
+
+        def forward_backward():
+            torch.autograd.grad(fused_attention_fn(q, k, v, mask), (q, k, v), g)
+
+        add_mask = None
+        if mask is not None:
+            add_mask = torch.zeros(mask.shape, device="cuda", dtype=torch.bfloat16)
+            add_mask.masked_fill_(~mask, torch.finfo(torch.bfloat16).min)
+            add_mask = add_mask[:, None, None, :]
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+        gt = g.to(torch.bfloat16).transpose(1, 2)
+
+        def sdpa_forward_backward():
+            o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=add_mask)
+            torch.autograd.grad(o, (qt, kt, vt), gt)
+
+        forward_ms = event_ms(forward, 10)
+        total_ms = event_ms(forward_backward, 5)
+        library_ms = event_ms(sdpa_forward_backward, 5)
+        row = dict(shape=name, B=batch, S=seq, K=kv_len, H=heads, D=depth, masked=bool(masked),
+                   launches=launched, max_abs_err=errs, grad_max_abs=scales,
+                   out_max_abs_err=out_err, atol=BACKWARD_ATOL, out_atol=KERNEL_ATOL,
+                   finite=finite, forward_ms=forward_ms, backward_ms=total_ms - forward_ms,
+                   forward_backward_ms=total_ms, sdpa_forward_backward_ms=library_ms,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        emit("attention_backward", **row)
+        if (not finite or launched != 1 or max(errs.values()) > BACKWARD_ATOL
+                or out_err > KERNEL_ATOL):
+            raise AssertionError(f"attention backward wrong: {row}")
+        rows[name] = row
+        del q, k, v, mask, g, qt, kt, vt, gt, add_mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _clone(tensors: dict) -> dict:
+    return {k: v.detach().clone() for k, v in tensors.items()}
+
+
+def _rel_l2(a: dict, b: dict) -> float:
+    """||a - b|| / ||b|| over every tensor of two same-keyed dicts (0 where
+    both are zero)."""
+    num = sum(float((a[k].detach().double() - b[k].detach().double()).square().sum())
+              for k in b)
+    den = sum(float(b[k].detach().double().square().sum()) for k in b)
+    return math.sqrt(num / den) if den else (0.0 if num == 0 else math.inf)
+
+
+def phase_train(model_type: str, profile: bool = False) -> dict:
+    """``train()`` at full width (bf16 compute, fused attention, encoder and
+    decoder chunks of 256, T = 150, 2048 support and 2048 query tracks,
+    batch 2, 3 steps) with a checkpoint per step; the resume from step 2;
+    then the train step alone: its time and peak memory, one accumulated
+    step (2 microbatches) against the full step, and the first step's loss
+    and gradients against the same model on plain attention."""
+    three_d = model_type == "3dspa"
+    overrides = dict(dtype=torch.bfloat16, fused_attention=True,
+                     encoder_scan_chunk_size=TRAIN_CHUNK, decoder_scan_chunk_size=TRAIN_CHUNK)
+    batch = train_batch(model_type)
+    schedule_kw = dict(learning_rate=TRAIN_LR, warmup_steps=1, num_epochs=100)
+    expected = step_launches(model_type)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = dict(model_type=model_type, num_output_frames=NUM_FRAMES, log_freq=1,
+                   save_freq=1, checkpoint_dir=tmp, max_steps=TRAIN_STEPS, seed=SEED,
+                   device="cuda", **schedule_kw, **overrides)
+        log = MetricLogger(use_wandb=False)
+        torch.cuda.reset_peak_memory_stats()
+        fused_masked_attention.launches = 0
+        t0 = time.perf_counter()
+        state = train([batch] * TRAIN_STEPS, logger=log, **run)
+        train_s = time.perf_counter() - t0
+        launches = fused_masked_attention.launches
+        train_peak = torch.cuda.max_memory_allocated() / 1e9
+        losses = [r["train/loss"] for r in log.history]
+        walls = [r["wall_s"] for r in log.history]
+        final = _clone(state.params)
+        del state
+        torch.cuda.empty_cache()
+        # Resume: drop step 3's checkpoint; the loop restarts from step 2.
+        ckpt = TrainCheckpointer(tmp)
+        saved_steps = sorted(int(d) for d in os.listdir(tmp))
+        step2 = ckpt.restore(2, device="cuda")["params"]
+        shutil.rmtree(os.path.join(tmp, str(TRAIN_STEPS)))
+        resumed = train([batch] * TRAIN_STEPS, logger=MetricLogger(use_wandb=False), **run)
+        resume_update = _rel_l2({k: resumed.params[k] - step2[k] for k in step2},
+                                {k: final[k] - step2[k] for k in step2})
+        resume_max_abs = max((resumed.params[k] - final[k]).abs().max().item() for k in final)
+        resumed_step = resumed.step
+        del resumed, final, step2
+        torch.cuda.empty_cache()
+
+    # The step alone, from the seeded init (train()'s).
+    state, model, optimizer, schedule = create_model_state(
+        SEED, model_type=model_type, learning_rate=TRAIN_LR, warmup_steps=1,
+        total_steps=100 * TRAIN_STEPS, num_output_frames=NUM_FRAMES, device="cuda", **overrides)
+    params = sum(p.numel() for p in model.parameters())
+    # First step: loss and gradients with the kernel, with plain attention
+    # (bf16) and with plain attention in f32 (the yardstick of bf16 noise).
+    fused_losses, fused_grads = loss_and_grads(model, state.params, batch)
+    fused_grads = dict(zip(state.params, fused_grads))
+    plain_grads = {}
+    before = fused_masked_attention.launches
+    for dtype in (torch.bfloat16, torch.float32):
+        plain = build_model(model_type, num_output_frames=NUM_FRAMES, device="cuda", seed=SEED,
+                            **{**overrides, "fused_attention": False, "dtype": dtype})
+        plain.load_state_dict(model.state_dict())
+        plain_params = dict(plain.named_parameters())
+        losses_, grads_ = loss_and_grads(plain, plain_params, batch)
+        plain_grads[dtype] = dict(zip(plain_params, grads_))
+        if dtype == torch.bfloat16:
+            plain_losses = losses_
+        del plain, plain_params, grads_
+    if fused_masked_attention.launches != before:
+        raise AssertionError("the plain-attention model launched the fused kernel")
+    g_plain, g_f32 = plain_grads[torch.bfloat16], plain_grads[torch.float32]
+    grad_rel = {k: _rel_l2({k: fused_grads[k]}, {k: g_plain[k]}) for k in fused_grads}
+    kernel_vs_f32 = {k: _rel_l2({k: fused_grads[k]}, {k: g_f32[k]}) for k in fused_grads}
+    plain_vs_f32 = {k: _rel_l2({k: g_plain[k]}, {k: g_f32[k]}) for k in fused_grads}
+    grad_excess = {k: kernel_vs_f32[k] - plain_vs_f32[k] for k in fused_grads}
+    grad_global = _rel_l2(fused_grads, g_plain)
+    loss_rel = abs(fused_losses["total_loss"].item() / plain_losses["total_loss"].item() - 1)
+    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:5]
+    worst_excess = sorted(grad_excess.items(), key=lambda kv: -kv[1])[:5]
+    del plain_grads, g_plain, g_f32, fused_grads
+    torch.cuda.empty_cache()
+
+    step = make_train_step(model, optimizer, schedule)
+    torch.cuda.reset_peak_memory_stats()
+    fused_masked_attention.launches = 0
+    step_ms, step_losses = [], []
+    for _ in range(TRAIN_STEPS):
+        (state, metrics), ms = _timed_call(step, state, batch)
+        step_ms.append(ms)
+        step_losses.append(metrics["train/loss"].item())
+    step_launches_seen = fused_masked_attention.launches / TRAIN_STEPS
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # One accumulated step (2 microbatches) against the full step, same state.
+    start = (_clone(state.params), _clone(state.opt_state.mu), _clone(state.opt_state.nu))
+
+    def reset():
+        with torch.no_grad():
+            for saved, live in zip(start, (state.params, state.opt_state.mu, state.opt_state.nu)):
+                for k, v in saved.items():
+                    live[k].copy_(v)
+
+    full_state, full_metrics = step(state, batch)
+    full_params = _clone(full_state.params)
+    reset()
+    accum = make_grad_accum_step(model, optimizer, schedule, num_microbatches=2)
+    before = fused_masked_attention.launches
+    (acc_state, acc_metrics), accum_ms = _timed_call(accum, state, batch)
+    accum_launches = fused_masked_attention.launches - before
+    acc_loss, full_loss = acc_metrics["train/loss"].item(), full_metrics["train/loss"].item()
+    accum_loss_rel = abs(acc_loss / full_loss - 1)
+    accum_lr = schedule(state.step)
+    param_excess = max(
+        ((acc_state.params[k] - full_params[k]).abs() - ACCUM_PARAM_RTOL * full_params[k].abs()
+         - 2 * accum_lr).max().item() for k in full_params)
+    accum_update = _rel_l2({k: acc_state.params[k] - start[0][k] for k in full_params},
+                           {k: full_params[k] - start[0][k] for k in full_params})
+    del full_state, full_params, acc_state, start
+    torch.cuda.empty_cache()
+
+    # Where a step's time goes: the forward (loss, autograd recording), the
+    # optimizer update, the backward as the rest; within them the attention
+    # kernel's launches and the recompute backward, each timed alone.
+    loss_fn = compute_loss_3d if three_d else compute_loss_2d
+    forward_ms = event_ms(lambda: loss_fn(model(batch), batch)["total_loss"], 2)
+    _, grads = loss_and_grads(model, state.params, batch)
+    optimizer_ms = event_ms(lambda: optimizer.update(grads, state.opt_state, state.params), 3)
+    del grads
+    costs = attention_step_costs(model_type)
+    step_median = statistics.median(step_ms[1:])
+    backward_ms = step_median - forward_ms - optimizer_ms
+    kernel_ms = costs["kernel_forward_ms"] + costs["kernel_recompute_ms"]
+    breakdown = {
+        "step_ms": step_median, "forward_ms": forward_ms, "optimizer_ms": optimizer_ms,
+        "backward_ms": backward_ms, "attention_kernel_ms": kernel_ms,
+        "attention_recompute_backward_ms": costs["recompute_backward_ms"],
+        "shares": {
+            "attention_kernel": kernel_ms / step_median,
+            "attention_recompute_backward": costs["recompute_backward_ms"] / step_median,
+            "rest_of_forward": (forward_ms - costs["kernel_forward_ms"]) / step_median,
+            "rest_of_backward": (backward_ms - costs["kernel_recompute_ms"]
+                                 - costs["recompute_backward_ms"]) / step_median,
+            "optimizer": optimizer_ms / step_median,
+        },
+        "attention_shapes": costs["shapes"],
+    }
+    emit(f"train_{'3d' if three_d else '2d'}_breakdown", **breakdown)
+    if profile:
+        phase_profile(f"train_{'3d' if three_d else '2d'}_step", lambda: step(state, batch))
+    row = dict(
+        model_type=model_type, params=params, batch=TRAIN_BATCH, support=TRAIN_SUPPORT,
+        queries=TRAIN_QUERIES, frames=NUM_FRAMES, chunk=TRAIN_CHUNK,
+        train_losses=losses, train_wall_s=train_s, train_log_wall_s=walls,
+        train_launches=launches, train_peak_mem_gb=train_peak, saved_steps=saved_steps,
+        resumed_step=resumed_step, resume_update_rel_l2=resume_update,
+        resume_update_limit=RESUME_UPDATE_REL_L2, resume_max_abs_diff=resume_max_abs,
+        step_ms=step_ms, step_median_ms=statistics.median(step_ms[1:]), step_losses=step_losses,
+        step_peak_mem_gb=step_peak, launches_per_step=step_launches_seen,
+        expected_launches=expected, accum_ms=accum_ms, accum_launches=accum_launches,
+        accum_loss_rel=accum_loss_rel, accum_loss_rtol=ACCUM_LOSS_RTOL,
+        accum_param_excess=param_excess, accum_param_rtol=ACCUM_PARAM_RTOL,
+        accum_lr=accum_lr,
+        accum_update_rel_l2=accum_update, accum_update_limit=ACCUM_UPDATE_REL_L2,
+        plain_loss_rel=loss_rel, plain_loss_rtol=PLAIN_LOSS_RTOL,
+        plain_grad_rel_l2_global=grad_global, plain_grad_rel_l2_limit=PLAIN_GRAD_REL_L2,
+        plain_grad_rel_l2_per_param={"max": max(grad_rel.values()),
+                                     "median": statistics.median(grad_rel.values()),
+                                     "over_limit": sum(v > PLAIN_GRAD_REL_L2
+                                                       for v in grad_rel.values()),
+                                     "worst": worst},
+        f32_rel_l2_per_param={"kernel_max": max(kernel_vs_f32.values()),
+                              "kernel_median": statistics.median(kernel_vs_f32.values()),
+                              "plain_max": max(plain_vs_f32.values()),
+                              "plain_median": statistics.median(plain_vs_f32.values()),
+                              "worst_excess": worst_excess},
+    )
+    emit(f"train_{'3d' if three_d else '2d'}", **row)
+    problems = []
+    if params != (SPA3D_PARAMS if three_d else TRAJAN_PARAMS):
+        problems.append(f"{params} parameters")
+    if not all(math.isfinite(x) for x in losses + step_losses) or len(losses) != TRAIN_STEPS:
+        problems.append(f"losses {losses} {step_losses}")
+    if launches != TRAIN_STEPS * expected["step"] or step_launches_seen != expected["step"]:
+        problems.append(f"launches {launches} / {step_launches_seen} per step, expected "
+                        f"{expected['step']} per step")
+    if accum_launches != step_launches(model_type, 2)["step"]:
+        problems.append(f"accumulated step launched {accum_launches}")
+    if saved_steps != list(range(1, TRAIN_STEPS + 1)) or resumed_step != TRAIN_STEPS:
+        problems.append(f"checkpoints {saved_steps}, resumed to step {resumed_step}")
+    if not resume_update <= RESUME_UPDATE_REL_L2:
+        problems.append(f"resumed step-3 update differs by {resume_update}")
+    if not accum_loss_rel <= ACCUM_LOSS_RTOL or not param_excess <= 0:
+        problems.append(f"accumulation: loss {accum_loss_rel}, params excess {param_excess}")
+    if not accum_update <= ACCUM_UPDATE_REL_L2:
+        problems.append(f"accumulation: updates differ by {accum_update}")
+    if (not loss_rel <= PLAIN_LOSS_RTOL or not grad_global <= PLAIN_GRAD_REL_L2
+            or not max(grad_rel.values()) <= PLAIN_GRAD_REL_L2
+            or not max(grad_excess.values()) <= PLAIN_GRAD_REL_L2):
+        problems.append(f"kernel vs plain attention: loss {loss_rel}, gradients {grad_global}, "
+                        f"per parameter {worst}, against f32 {worst_excess}")
+    if problems:
+        raise AssertionError(f"train_{model_type}: {problems}")
+    return {"launches": launches, "launches_per_step": expected["step"],
+            "step_median_ms": row["step_median_ms"], "peak_mem_gb": step_peak}
+
+
+def phase_train_cli() -> dict:
+    """``python -m tdspa_torch.cli.train`` for each model type on the
+    synthetic fallback (64-track videos): 2 steps of batch 2, metrics every
+    step, eval and a checkpoint at step 2. The JSONL holds JAX's keys; the
+    checkpoint loads through ``load_checkpoint`` into a model whose eval
+    loss on the same 10 validation batches is the one the CLI logged."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    rows = {}
+    train_keys = {"train/loss", "train/position_loss", "train/visible_loss",
+                  "train/learning_rate", "step", "wall_s"}
+    eval_keys = {"eval/loss", "eval/position_loss", "eval/visible_loss", "step", "wall_s"}
+    for model_type in ("3dspa", "trajan"):
+        with tempfile.TemporaryDirectory() as tmp:
+            cmd = [sys.executable, "-m", "tdspa_torch.cli.train", f"--model_type={model_type}",
+                   "--max_steps=2", "--batch_size=2", "--nouse_wandb", "--log_freq=1",
+                   "--save_freq=2", "--eval_freq=2", "--warmup_steps=1",
+                   f"--checkpoint_dir={tmp}/ckpt", f"--log_jsonl={tmp}/metrics.jsonl"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=tmp, capture_output=True, text=True, timeout=600,
+                                  env={**os.environ, "PYTHONPATH": repo})
+            wall_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"train CLI ({model_type}) failed:\n{proc.stderr[-4000:]}")
+            with open(f"{tmp}/metrics.jsonl") as f:
+                records = [json.loads(line) for line in f]
+            kinds = [("eval" if "eval/loss" in r else "train", r["step"]) for r in records]
+            keys_ok = all(set(r) == (eval_keys if "eval/loss" in r else train_keys)
+                          for r in records)
+            # The CLI's model starts from train()'s default seed.
+            model = build_model(model_type, num_output_frames=NUM_FRAMES, device="cuda",
+                                seed=inspect.signature(train).parameters["seed"].default)
+            init = _clone(dict(model.named_parameters()))
+            model.load_state_dict(load_checkpoint(f"{tmp}/ckpt/2", device="cuda"))
+            moved = max((p - init[k]).abs().max().item() for k, p in model.named_parameters())
+            loader = load_kubric3d_dataset if model_type == "3dspa" else load_tapvid_dataset
+            eval_ds = loader("", split="validation", batch_size=2, shuffle=False,
+                             num_frames=NUM_FRAMES)
+            eval_step = make_eval_step(model)
+            losses = [eval_step(dict(model.named_parameters()),
+                                to_device(b, torch.device("cuda")))[0]["eval/loss"].item()
+                      for b in eval_ds.take(10)]
+            logged = next(r["eval/loss"] for r in records if "eval/loss" in r)
+            eval_rel = abs(float(np.mean(losses)) / logged - 1)
+        row = dict(model_type=model_type, wall_s=wall_s, records=kinds, keys_ok=keys_ok,
+                   losses=[r.get("train/loss", r.get("eval/loss")) for r in records],
+                   params_moved_max_abs=moved, logged_eval_loss=logged,
+                   reloaded_eval_loss=float(np.mean(losses)), eval_rel=eval_rel,
+                   rtol=CLI_EVAL_RTOL)
+        emit("train_cli", **row)
+        if (kinds != [("train", 1), ("train", 2), ("eval", 2)] or not keys_ok
+                or not moved > 0 or not eval_rel <= CLI_EVAL_RTOL
+                or not all(math.isfinite(x) for x in row["losses"])):
+            raise AssertionError(f"train CLI ({model_type}) wrong: {row}")
+        rows[model_type] = row
+        del model, init
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv: list[str]) -> int:
     info = phase_device()
     phase_build()
@@ -1896,6 +2475,14 @@ def main(argv: list[str]) -> int:
     del full
     torch.cuda.empty_cache()
     harness_row = phase_eval_harness()
+    trajan = phase_trajan2d()
+    torch.cuda.empty_cache()
+    backward = phase_attention_backward()
+    train_3d = phase_train("3dspa", profile="--profile" in argv)
+    torch.cuda.empty_cache()
+    train_2d = phase_train("trajan", profile="--profile" in argv)
+    torch.cuda.empty_cache()
+    phase_train_cli()
     bound_by = "bytes" if totals["bytes_ms"] >= totals["flops_ms"] else "operations"
     kernels = [{
         "name": "fused_masked_attention",
@@ -1903,7 +2490,11 @@ def main(argv: list[str]) -> int:
         "source": "tdspa_torch/csrc/attention.cu",
         "replaces": "tdspa/kernels/attention.py:382",
         "also_replaces": "tdspa/kernels/attention.py:310",
-        "launches": path["launches"],
+        "launches": (path["launches"] + trajan["launches"] + train_3d["launches"]
+                     + train_2d["launches"]),
+        "launches_by_path": {"pipeline": path["launches"], "trajan2d": trajan["launches"],
+                             "train_3d": train_3d["launches"],
+                             "train_2d": train_2d["launches"]},
         "max_abs_err": totals["max_abs_err"],
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -1912,6 +2503,16 @@ def main(argv: list[str]) -> int:
         "library_ms": totals["library_ms"],
         "bf16_out_ms": totals["bf16_out_ms"],
         "per": "one forward: the 19 launches at their main-path shapes, f32 output",
+        "training": {
+            "launches_per_step": {"3dspa": train_3d["launches_per_step"],
+                                  "trajan": train_2d["launches_per_step"]},
+            "step_median_ms": {"3dspa": train_3d["step_median_ms"],
+                               "trajan": train_2d["step_median_ms"]},
+            "backward": {k: {"forward_ms": v["forward_ms"], "backward_ms": v["backward_ms"],
+                             "sdpa_forward_backward_ms": v["sdpa_forward_backward_ms"]}
+                         for k, v in backward.items()},
+            "backward_route": "xla_reference recompute under autograd (no backward kernel)",
+        },
         "launches_on_new_paths": {
             "eval_harness": harness_row["launches"],
             "eval_harness_forwards": harness_row["forwards"],

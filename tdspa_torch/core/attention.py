@@ -31,7 +31,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from tdspa_torch.kernels.attention import fused_masked_attention
+from tdspa_torch.kernels.attention import fused_attention_fn, fused_masked_attention
 from tdspa_torch.kernels.block import fused_transformer_block, kernel_takes
 
 _FILL = torch.finfo(torch.float32).min
@@ -141,7 +141,9 @@ def _fused_attention_applicable(q, k, mask) -> bool:
 
 
 def _fused_attention(q, k, v, mask, out_dtype):
-    """Flatten leading batch dims and launch the fused kernel."""
+    """Flatten leading batch dims and launch the fused kernel: with f32 output
+    through the differentiable ``fused_attention_fn`` (the training path), with
+    bf16 output (bf16-residual inference) straight, as JAX does."""
     lead = q.shape[:-3]
     s, h, d = q.shape[-3:]
     kv = k.shape[-3]
@@ -152,9 +154,12 @@ def _fused_attention(q, k, v, mask, out_dtype):
     def flat(x, n):
         return x.to(torch.bfloat16).reshape(-1, n, h, d).contiguous()
 
-    out = fused_masked_attention(
-        flat(q, s), flat(k, kv), flat(v, kv), key_mask, out_dtype=out_dtype
-    )
+    if out_dtype == torch.float32:
+        out = fused_attention_fn(flat(q, s), flat(k, kv), flat(v, kv), key_mask)
+    else:
+        out = fused_masked_attention(
+            flat(q, s), flat(k, kv), flat(v, kv), key_mask, out_dtype=out_dtype
+        )
     return out.reshape(lead + (s, h, d))
 
 

@@ -1,25 +1,32 @@
-"""Checkpoint loading for the port (port of the ``.npz`` side of
-``tdspa/infer/checkpoint.py``).
+"""Checkpoint I/O for the port (port of ``tdspa/infer/checkpoint.py``).
 
-``load_checkpoint`` reads the three ``.npz`` layouts of the reference
-loader, (a) a pickled ``params`` object, (b) a pickled ``optimizer`` dict
-exposing ``target``, (c) flat ``a/b/c`` keys (what
-``tdspa.infer.checkpoint.save_checkpoint_npz`` writes), adapts
-reference-layout feature projections, and returns a ``state_dict`` for
-``TrackAutoEncoder3D.load_state_dict`` on the requested device. Layouts (a)
-and (b) unpickle, so load only files from a trusted source. The Orbax
-directory layout comes with the training slice (ROADMAP.md).
+* ``load_checkpoint`` reads the three ``.npz`` layouts of the reference
+  loader, (a) a pickled ``params`` object, (b) a pickled ``optimizer`` dict
+  exposing ``target``, (c) flat ``a/b/c`` keys (what ``save_checkpoint_npz``
+  writes, here and in JAX), and (d) a step directory of
+  ``TrainCheckpointer``; it adapts reference-layout feature projections and
+  returns a ``state_dict`` for the models' ``load_state_dict`` on the
+  requested device. Layouts (a) and (b) unpickle, so load only files from a
+  trusted source.
+* ``save_checkpoint_npz`` writes layout (c), which JAX's ``load_checkpoint``
+  reads too.
+* ``TrainCheckpointer`` saves and restores ``{params, opt_state, step}`` for
+  resuming training, with ``torch.save``. It stands where JAX's
+  ``OrbaxCheckpointer`` does, but neither reads the other's directories:
+  there is no Orbax on the card's machine.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import re
+import shutil
 
 import numpy as np
 import torch
 
-from tdspa_torch.infer.convert import params_from_flax
+from tdspa_torch.infer.convert import params_from_flax, params_to_flax
 from tdspa_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -51,7 +58,8 @@ def _load_npz(checkpoint_path: str):
 
 def load_params_tree(checkpoint_path: str, projection_policy: str = "error",
                      track_token_dim: int = 384) -> dict:
-    """The nested flax parameter tree (numpy) of an ``.npz`` checkpoint.
+    """The nested flax parameter tree (numpy) of an ``.npz`` checkpoint or a
+    ``TrainCheckpointer`` step directory.
 
     ``projection_policy`` handles reference-layout feature projections (see
     ``adapt_reference_projections``): ``'error'`` raises, ``'slice'``
@@ -60,10 +68,19 @@ def load_params_tree(checkpoint_path: str, projection_policy: str = "error",
     logger.info("Loading checkpoint from %s", checkpoint_path)
     if not os.path.exists(checkpoint_path):
         raise FileNotFoundError(f"Checkpoint not found: {checkpoint_path}")
+    if os.path.isdir(checkpoint_path):
+        state_file = os.path.join(checkpoint_path, TrainCheckpointer.FILE)
+        if not os.path.isfile(state_file):
+            raise NotImplementedError(
+                f"{checkpoint_path}: a directory loads only as a TrainCheckpointer "
+                f"step directory (holding {TrainCheckpointer.FILE}); the port "
+                "cannot read Orbax or flax msgpack directories"
+            )
+        return params_to_flax(torch.load(state_file, weights_only=True)["params"])
     if not checkpoint_path.endswith(".npz"):
         raise NotImplementedError(
-            f"{checkpoint_path}: only .npz checkpoints load in the port; the "
-            "Orbax directory layout comes with the training slice (ROADMAP.md)"
+            f"{checkpoint_path}: the port loads .npz files and TrainCheckpointer "
+            "step directories"
         )
     params = _load_npz(checkpoint_path)
     if projection_policy != "ignore" and isinstance(params, dict):
@@ -77,10 +94,81 @@ def load_checkpoint(checkpoint_path: str, projection_policy: str = "error",
                     track_token_dim: int = 384,
                     device="cuda") -> dict[str, torch.Tensor]:
     """``state_dict`` on ``device`` (GPU unless ``device="cpu"``) from an
-    ``.npz`` checkpoint; see ``load_params_tree`` for the policy."""
+    ``.npz`` checkpoint or a ``TrainCheckpointer`` step directory; see
+    ``load_params_tree`` for the policy."""
     device = resolve_device(device)
     tree = load_params_tree(checkpoint_path, projection_policy, track_token_dim)
     return {k: v.to(device) for k, v in params_from_flax(tree).items()}
+
+
+def flatten_params(tree: dict, prefix: str = "") -> dict:
+    """Nested dicts -> 'a/b/c' flat keys (inverse of ``unflatten_params``)."""
+    flat = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(value, dict):
+            flat.update(flatten_params(value, path))
+        else:
+            flat[path] = np.asarray(value)
+    return flat
+
+
+def save_checkpoint_npz(checkpoint_path: str, params) -> None:
+    """Write ``params`` (a model's ``state_dict`` or a nested flax-layout
+    tree) as the flat-key ``.npz`` the reference loader reads back."""
+    if all(isinstance(v, torch.Tensor) for v in params.values()):
+        params = params_to_flax(params)
+    flat = flatten_params(params)
+    os.makedirs(os.path.dirname(os.path.abspath(checkpoint_path)), exist_ok=True)
+    np.savez(checkpoint_path, **flat)
+    logger.info("Saved %d arrays to %s", len(flat), checkpoint_path)
+
+
+class TrainCheckpointer:
+    """Train-state save/restore with retention, for resume after a failure.
+
+    ``save(step, tree)`` writes ``tree`` (``{"params", "opt_state", "step"}``:
+    tensors, dicts of them and numbers) to ``directory/<step>/state.pt``,
+    written to a temporary name and renamed, so a step directory holds a
+    whole checkpoint or none, and keeps the newest ``max_to_keep`` steps.
+    Files load with ``weights_only=True``: no pickled code runs.
+    """
+
+    FILE = "state.pt"
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self._directory = os.path.abspath(directory)
+        self._max_to_keep = max_to_keep
+        os.makedirs(self._directory, exist_ok=True)
+
+    def _steps(self) -> list[int]:
+        return sorted(
+            int(name) for name in os.listdir(self._directory)
+            if re.fullmatch(r"\d+", name)
+            and os.path.isfile(os.path.join(self._directory, name, self.FILE))
+        )
+
+    def save(self, step: int, state_tree) -> None:
+        step_dir = os.path.join(self._directory, str(step))
+        os.makedirs(step_dir, exist_ok=True)
+        path = os.path.join(step_dir, self.FILE)
+        torch.save(state_tree, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        for old in self._steps()[: -self._max_to_keep]:
+            shutil.rmtree(os.path.join(self._directory, str(old)))
+
+    def restore(self, step: int | None = None, device="cpu"):
+        """The tree saved at ``step`` (the latest when None) with its tensors
+        on ``device``, or None when there is no checkpoint."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        path = os.path.join(self._directory, str(step), self.FILE)
+        return torch.load(path, map_location=device, weights_only=True)
+
+    def latest_step(self) -> int | None:
+        steps = self._steps()
+        return steps[-1] if steps else None
 
 
 _PROJECTION_NAMES = ("dino_projection", "depth_projection")

@@ -22,8 +22,12 @@ Replaces the TPU kernels of ``tdspa/kernels/attention.py``:
 
 Both wrappers launch their kernel for CUDA tensors and run
 ``attention_reference`` for CPU tensors; neither falls back from one to the
-other. Each counts its own launches. Forward only: the training slice adds
-the backward.
+other. Each counts its own launches. Both are forward-only, as the Pallas
+kernels are. Training differentiates through ``fused_attention_fn``, the port
+of JAX's ``fused_attention`` (a ``custom_vjp``): its forward is
+``fused_masked_attention`` with f32 output, its backward recomputes
+``xla_reference`` (JAX's ``_xla_reference``) under autograd, the trade JAX
+makes. The JAX package has no backward kernel to port.
 """
 
 from __future__ import annotations
@@ -146,8 +150,8 @@ def fused_masked_attention(q, k, v, key_mask=None, out_dtype=torch.float32):
         raise ValueError(f"kernel takes D in 8..128 (multiple of 8) and S, K > 0; got {tuple(q.shape)}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "fused_masked_attention is forward-only; the backward comes with "
-            "the training slice (ROADMAP.md queue 2, item 8; training is queue 1, item 5)"
+            "fused_masked_attention is forward-only; differentiate through "
+            "fused_attention_fn (f32 output), whose backward is JAX's recompute"
         )
     if key_mask is not None:
         if key_mask.dtype != torch.bool:
@@ -221,8 +225,7 @@ def vit_attention(q, k, v, out_dtype=torch.float32):
         raise ValueError(f"kernel takes D = {VIT_HEAD} and S, K > 0; got {tuple(q.shape)}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "vit_attention is forward-only; the backward comes with the training "
-            "slice (ROADMAP.md queue 2, item 8; training is queue 1, item 5)"
+            "vit_attention is forward-only, as JAX's ViT attention kernel is"
         )
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     if out.numel() == 0:
@@ -242,3 +245,55 @@ def vit_attention(q, k, v, out_dtype=torch.float32):
 
 
 vit_attention.launches = 0
+
+
+def xla_reference(q, k, v, key_mask=None):
+    """JAX's ``_xla_reference`` (``tdspa/kernels/attention.py:543-560``), the
+    function its ``fused_attention`` backward differentiates.
+
+    q is rounded to bf16 and divided by sqrt(D) rounded to bf16, in bf16;
+    products of bf16 values accumulate in f32; masked logits are
+    ``finfo(f32).min``; f32 softmax; probabilities rounded to bf16 before P.V;
+    f32 out. The kernel instead scales the f32 logits by 1/sqrt(D): at D = 64
+    the two agree exactly (sqrt(64) = 8 in bf16), at D = 96 bf16 sqrt(96) is
+    9.8125 against 9.798, so the recompute's logits are 0.15 % smaller than
+    the forward's. The backward follows JAX's recompute, not the forward.
+    """
+    root = torch.tensor(math.sqrt(q.shape[-1]), dtype=torch.float32).to(torch.bfloat16)
+    qs = q.to(torch.bfloat16) / root.to(q.device)
+    logits = torch.einsum("...qhd,...khd->...hqk", qs.float(), k.to(torch.bfloat16).float())
+    if key_mask is not None:
+        attend = (key_mask != 0)[..., None, None, :]
+        logits = torch.where(attend, logits, _FILL)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("...hqk,...khd->...qhd", probs.to(torch.bfloat16).float(),
+                        v.to(torch.bfloat16).float())
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask):
+        ctx.save_for_backward(q, k, v, key_mask)
+        return fused_masked_attention(q, k, v, key_mask, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, key_mask = ctx.saved_tensors
+        needed = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_(n) for x, n in zip((q, k, v), needed)]
+            out = xla_reference(*inputs, key_mask)
+            grads = iter(torch.autograd.grad(out, [x for x in inputs if x.requires_grad], grad))
+        return (*(next(grads) if n else None for n in needed), None)
+
+
+def fused_attention_fn(q, k, v, key_mask=None):
+    """Differentiable fused attention: q [B,S,H,D], k/v [B,K,H,D], key_mask
+    [B,K] -> f32 [B,S,H,D] (JAX's ``fused_attention``).
+
+    Forward: ``fused_masked_attention`` (the kernel on CUDA tensors, its plain
+    version on CPU tensors). Backward: autograd through ``xla_reference`` on
+    the saved inputs, recomputing the probabilities instead of keeping them.
+    The key mask gets no gradient.
+    """
+    return _FusedAttention.apply(q, k, v, key_mask)

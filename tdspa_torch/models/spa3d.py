@@ -12,6 +12,9 @@ decoder time term ``query_frame // time_scale_factor``, the fixed-key
 dither, ``certain_logits`` of zeros, and the key-only readout mask.
 ``encoder_scan_chunk_size`` / ``decoder_scan_chunk_size`` become plain loops
 over support-track / query chunks; chunked output equals unchunked output.
+Where JAX rematerialises (each encoder chunk, ``get_decoder_context`` and
+``decode``), the port recomputes under ``torch.utils.checkpoint`` while
+autograd records, so a full-width training step fits in memory.
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ from tdspa_torch.models.containers import (
 )
 from tdspa_torch.models.trajan2d import (
     append_time_feature,
+    chunked_decode,
     default_query_grid,
     quantize_latents,
+    remat,
 )
 from tdspa_torch.utils.device import resolve_device
 
@@ -164,21 +169,28 @@ class TrackAutoEncoder3D(nn.Module):
         tracks = inputs["support_tracks"]
         visible = inputs["support_tracks_visible"]
         dino, depth = inputs.get("dino_features"), inputs.get("depth_features")
-        chunk = self.encoder_scan_chunk_size or tracks.shape[-3]
-        if tracks.shape[-3] % chunk:
-            raise ValueError(
-                f"encoder_scan_chunk_size={chunk} must divide the support "
-                f"track count {tracks.shape[-3]}"
+        h = self.encoder_scan_chunk_size
+        if h is None:
+            support_track_tokens = self.encode_tracks(
+                tracks, visible, inputs["boundary_frame"], dino_features=dino,
+                depth_features=depth,
             )
+        else:
+            if tracks.shape[-3] % h:
+                raise ValueError(
+                    f"encoder_scan_chunk_size={h} must divide the support "
+                    f"track count {tracks.shape[-3]}"
+                )
 
-        def part(x, i):  # the support-track axis is -3
-            return None if x is None else x[..., i : i + chunk, :, :]
+            def part(x, i):  # the support-track axis is -3
+                return None if x is None else x[..., i : i + h, :, :]
 
-        support_track_tokens = torch.cat([
-            self.encode_tracks(part(tracks, i), part(visible, i), inputs["boundary_frame"],
-                               dino_features=part(dino, i), depth_features=part(depth, i))
-            for i in range(0, tracks.shape[-3], chunk)
-        ], dim=-2)
+            # Each chunk is recomputed in the backward pass (JAX's nn.remat).
+            support_track_tokens = torch.cat([
+                remat(self.encode_tracks, part(tracks, i), part(visible, i),
+                      inputs["boundary_frame"], part(dino, i), part(depth, i))
+                for i in range(0, tracks.shape[-3], h)
+            ], dim=-2)
         latents = self.initializer((tracks.shape[0],))
         latents = self.tracks_to_latents(latents, support_track_tokens)
         # Latents leave in f32 whatever the compute dtype (1/128 grid).
@@ -240,24 +252,4 @@ class TrackAutoEncoder3D(nn.Module):
     # ------------------------------------------------------------------ #
 
     def forward(self, inputs) -> TrackAutoEncoderResults:
-        latents = self.encode(inputs)
-        if self.decoder_scan_chunk_size is None:
-            return self.decode(latents, self.get_decoder_context(inputs))
-        h = self.decoder_scan_chunk_size
-        query_points = inputs["query_points"]
-        if query_points.shape[-2] % h:
-            raise ValueError(
-                f"decoder_scan_chunk_size={h} must divide the query count "
-                f"{query_points.shape[-2]}"
-            )
-        parts = [
-            self.decode(latents, self.get_decoder_context(
-                {**inputs, "query_points": query_points[..., i : i + h, :]}
-            ))
-            for i in range(0, query_points.shape[-2], h)
-        ]
-        return TrackAutoEncoderResults(
-            tracks=torch.cat([p.tracks for p in parts], dim=-3),
-            visible_logits=torch.cat([p.visible_logits for p in parts], dim=-3),
-            certain_logits=torch.cat([p.certain_logits for p in parts], dim=-3),
-        )
+        return chunked_decode(self, self.encode(inputs), inputs)

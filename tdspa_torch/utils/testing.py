@@ -9,9 +9,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tdspa_torch.models import TrackAutoEncoder3D
+from tdspa_torch.models import TrackAutoEncoder, TrackAutoEncoder3D
 
-TINY_3D = dict(
+TINY_2D = dict(
     num_latent_tokens=8,
     latent_token_dim=8,
     num_frequencies=4,
@@ -29,6 +29,12 @@ TINY_3D = dict(
     readout_layers=1,
     readout_mlp=32,
 )
+
+TINY_3D = dict(TINY_2D)
+
+
+def tiny_model_2d(num_output_frames: int = 12, **overrides) -> TrackAutoEncoder:
+    return TrackAutoEncoder(num_output_frames=num_output_frames, **{**TINY_2D, **overrides})
 
 
 def tiny_model_3d(num_output_frames: int = 12, **overrides) -> TrackAutoEncoder3D:

@@ -21,11 +21,19 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from tdspa.core.attention import masked_dot_product_attention
-from tdspa.kernels.attention import _flash_attention, _flash_perhead
+from tdspa.kernels.attention import _flash_attention, _flash_perhead, _xla_reference
 from tdspa.kernels.attention import fused_masked_attention as jax_fused
 from tdspa_torch.kernels import attention as ka
-from tdspa_torch.kernels.attention import attention_reference, fused_masked_attention, vit_attention
+from tdspa_torch.kernels.attention import (
+    attention_reference,
+    fused_attention_fn,
+    fused_masked_attention,
+    vit_attention,
+    xla_reference,
+)
 
 ATOL = 2e-2
 
@@ -273,6 +281,51 @@ def test_split_merge_model_matches_pallas_flash_body(chunk_tiles):
                             interpret=True, out_dtype=jnp.float32)
     got = _kernel_model(q, k, v, mask, chunk_tiles)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("depth", [64, 96])
+@pytest.mark.parametrize("masked", [True, False])
+def test_fused_attention_fn_gradients_match_jax_vjp(depth, masked):
+    """``fused_attention_fn``'s dq, dk, dv (autograd through ``xla_reference``
+    on the saved bf16 inputs) against ``jax.vjp`` of JAX's ``_xla_reference``
+    at both head widths, masked (item 0 with every key masked) or not. Both
+    round at the same points (q/sqrt(D) in bf16, f32 products and softmax,
+    P in bf16, each input's cotangent in bf16), so they differ by f32
+    summation order, which can move a cotangent's final bf16 rounding by one
+    step (at most 2^-7 relative), plus 1e-5 of each gradient's largest
+    value. The forward runs
+    the kernel's plain version here; the recompute's output is held to
+    ``_xla_reference`` at 1e-6."""
+    q, k, v, mask = _inputs(10 + depth, 3, 7, 19, 2, depth, masked)
+    g = np.random.default_rng(depth).standard_normal(q.shape).astype(np.float32)
+    jm = None if mask is None else jnp.asarray(mask)
+    want_out, vjp = jax.vjp(lambda a, b, c: _xla_reference(a, b, c, jm),
+                            *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    tm = None if mask is None else torch.from_numpy(mask)
+    out = fused_attention_fn(*(x.to(torch.bfloat16) for x in (tq, tk, tv)), tm)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out.detach(), attention_reference(tq, tk, tv, tm), rtol=0, atol=0)
+    out.backward(torch.from_numpy(g))
+    for name, got, ref in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), want):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=2.0 ** -7,
+                                   atol=1e-5 * np.abs(ref).max(), err_msg=name)
+    np.testing.assert_allclose(xla_reference(*_torch(q, k, v, mask)).numpy(),
+                               np.asarray(want_out), rtol=0, atol=1e-6)
+    if masked:  # the fully masked item: uniform weights, so dq is zero
+        assert float(tq.grad[0].abs().max()) == 0.0
+
+
+def test_fused_attention_fn_gives_only_the_gradients_asked_for():
+    q, k, v, mask = _torch(*_inputs(11, 2, 5, 9, 2, 64))
+    k.requires_grad_()
+    out = fused_attention_fn(q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16),
+                             mask)
+    (dk,) = torch.autograd.grad(out.sum(), (k,))
+    assert dk.shape == k.shape and q.grad is None
+    assert fused_masked_attention.launches == 0  # CPU tensors: the plain version
 
 
 @pytest.mark.parametrize("source,symbol,argtypes", [

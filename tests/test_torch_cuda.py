@@ -6,6 +6,8 @@ Imports no JAX, so it also runs on a GPU host that has none (the repository's
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: kernel vs plain version as in ``tests/test_torch_attention.py``
+(and the attention's backward, autograd through ``xla_reference`` either
+way, 1e-5)
 (2e-2 abs, + 2**-7 rel for a bf16 output), for both attention kernels and
 the fused block; the int8 and bilinear kernels equal their plain versions
 bit for bit; the tiny bf16 model or ViT with the kernel vs the same one with
@@ -16,7 +18,12 @@ differently inside every attention).
 import pytest
 import torch
 
-from tdspa_torch.kernels.attention import attention_reference, fused_masked_attention
+from tdspa_torch.kernels.attention import (
+    attention_reference,
+    fused_attention_fn,
+    fused_masked_attention,
+    xla_reference,
+)
 from tdspa_torch.utils.testing import synthetic_batch, tiny_model_3d, to_torch
 
 ATOL = 2e-2
@@ -97,6 +104,51 @@ def test_kernel_refuses_inputs_that_require_grad(cuda_device):
     q, k, v, _ = _inputs(cuda_device, 1, 4, 4, 1, 8, False)
     with pytest.raises(NotImplementedError, match="forward-only"):
         fused_masked_attention(q.requires_grad_(), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 151, 151, 8, 96, True), (1, 128, 2048, 8, 96, False),
+                                   (16, 150, 150, 8, 64, True)])
+def test_fused_attention_fn_backward_matches_plain_version(cuda_device, shape):
+    """The kernel forward against ``attention_reference``; dq, dk, dv against
+    autograd through the plain ``xla_reference`` on the same inputs (the
+    backward is that autograd: equal up to the card's reduction order)."""
+    q, k, v, mask = _inputs(cuda_device, *shape)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    g = torch.randn(q.shape, device=cuda_device)
+    before = fused_masked_attention.launches
+    out = fused_attention_fn(q, k, v, mask)
+    assert fused_masked_attention.launches == before + 1 and out.dtype == torch.float32
+    torch.testing.assert_close(out, attention_reference(q.detach(), k.detach(), v.detach(), mask),
+                               atol=ATOL, rtol=0)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = torch.autograd.grad(xla_reference(q, k, v, mask), (q, k, v), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_runs_the_kernel(cuda_device):
+    """One bf16 train step with chunks and the kernel: each chunk's layer
+    launches forward and again in the recompute; the loss is finite and
+    within 1e-2 of the plain-attention model's on the same parameters."""
+    from tdspa_torch.train.step import loss_and_grads
+    from tdspa_torch.utils.testing import tiny_model_2d
+
+    knobs = dict(dtype=torch.bfloat16, encoder_scan_chunk_size=4, decoder_scan_chunk_size=2)
+    fused = tiny_model_2d(12, device=cuda_device, fused_attention=True, **knobs)
+    plain = tiny_model_2d(12, device=cuda_device, **knobs)
+    plain.load_state_dict(fused.state_dict())
+    batch = to_torch(synthetic_batch(0, num_coords=2), cuda_device)
+    before = fused_masked_attention.launches
+    losses, grads = loss_and_grads(fused, dict(fused.named_parameters()), batch)
+    # Encoder 2 chunks, latents self + cross, decoder 2 chunks x (decompress
+    # + readout); the chunks again in the recompute.
+    assert fused_masked_attention.launches - before == 2 * 2 + 2 + 2 * 2 * 2
+    want, _ = loss_and_grads(plain, dict(plain.named_parameters()), batch)
+    loss = losses["total_loss"].item()
+    assert torch.isfinite(torch.tensor(loss)) and all(torch.isfinite(x).all() for x in grads)
+    assert abs(loss / want["total_loss"].item() - 1) <= 1e-2
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
-"""The port stands alone: tdspa_torch and chip_smoke.py import neither JAX nor
-any module of the JAX package, nor triton at import time, and the GPU entry
-points refuse to run on a host without a GPU instead of falling back."""
+"""The port stands alone: tdspa_torch and chip_smoke.py import neither JAX
+(nor flax, optax, orbax or absl) nor any module of the JAX package, nor
+triton at import time, and the GPU entry points refuse to run on a host
+without a GPU instead of falling back."""
 
 import json
 from pathlib import Path
@@ -15,7 +16,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "orbax", "triton"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "absl", "triton"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import tdspa_torch
 modules = [m.name for m in pkgutil.walk_packages(tdspa_torch.__path__, "tdspa_torch.")]
@@ -52,7 +53,12 @@ def test_port_imports_without_jax_tdspa_or_triton():
                  "tdspa_torch.utils.profiling", "tdspa_torch.cli.flags", "tdspa_torch.cli.infer",
                  "tdspa_torch.cli.evaluate", "tdspa_torch.eval.tapvid3d_metrics",
                  "tdspa_torch.eval.realism", "tdspa_torch.eval.harness",
-                 "tdspa_torch.data.providers"):
+                 "tdspa_torch.data.providers", "tdspa_torch.data.prefetch",
+                 "tdspa_torch.data.batch_prep", "tdspa_torch.models.trajan2d",
+                 "tdspa_torch.train.losses", "tdspa_torch.train.schedule",
+                 "tdspa_torch.train.state", "tdspa_torch.train.step",
+                 "tdspa_torch.train.metrics", "tdspa_torch.train.loop",
+                 "tdspa_torch.cli.train"):
         assert name in report["modules"]
 
 
@@ -66,7 +72,8 @@ def test_port_sources_name_no_jax_package():
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]):
-                assert words[1].split(".")[0] not in ("jax", "flax", "tdspa", "triton"), (
+                assert words[1].split(".")[0] not in ("jax", "flax", "optax", "orbax", "absl",
+                                                      "tdspa", "triton"), (
                     f"{path}: {line}"
                 )
 
@@ -80,7 +87,9 @@ def test_gpu_entry_points_raise_without_a_gpu():
                  "from tdspa_torch.features.dino import DinoFeatureExtractor\n"
                  "DinoFeatureExtractor()\n",
                  "from tdspa_torch.features.depth import VideoDepthEstimator\n"
-                 "VideoDepthEstimator()\n"):
+                 "VideoDepthEstimator()\n",
+                 "from tdspa_torch.train.loop import train\ntrain([{}])\n",
+                 "from tdspa_torch.cli.train import main\nmain(['--max_steps=1'])\n"):
         proc = _run(code)
         assert proc.returncode != 0
         assert "no CUDA GPU" in proc.stderr and "device='cpu'" in proc.stderr
