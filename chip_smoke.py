@@ -133,6 +133,28 @@ and the script exits non-zero:
    synthetic fallback: JAX's JSONL keys, and the step-2 checkpoint through
    ``load_checkpoint`` gives the logged eval loss.
 
+23. export (after phase 14): the full-width tail exported with
+   ``torch.export`` in the default, quantised and fused-block
+   configurations (phase 4's model, split and inputs), saved, then loaded
+   and called in a fresh process that imports no model module: launches per
+   call (the ``tdspa::`` custom ops' CUDA implementations), call ms beside
+   the eager ``fused_tail``'s, outputs against the eager tail within 1e-5 of
+   the range (bit-equal expected); export_manifest_check: an artifact whose
+   manifest differs from the pipeline's configuration is refused.
+24. matcher_train (after phase 7): the bilinear and cost-patch wrappers
+   refuse autograd on CUDA tensors; the matcher's training at the shipped
+   recipe's widths and scenes: the first 3 steps on the card against the
+   CPU, the feature net's gradient on the card, 1500 steps (step ms, peak
+   memory, the logged losses, which must fall below 0.6 x the first, as in
+   JAX's test), then the trained matcher saved, loaded and run by the
+   tracker on the noisy scene through ``csrc/matcher.cu`` beside the
+   shipped matcher.
+25. export_entry (after phase 17): ``InferencePipeline(tail_artifact=...)``
+   with phase 10's front ends and model on the clean scene, equal to phase
+   10's predictions; the infer CLI with ``--tail_artifact``.
+26. export_forward_2d (after phase 19): ``export_model_forward`` of the
+   default 2D TRAJAN against its eager forward.
+
 With ``--profile``, one more run of each full-width pipeline's stage (and
 of each feature extractor, and one train step of each model) under
 ``torch.profiler`` reports the device's busy time and the kernels that take
@@ -146,6 +168,7 @@ Without a GPU it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import inspect
 import json
 import logging
@@ -171,6 +194,7 @@ from tdspa_torch.features import matcher as matcher_lib
 from tdspa_torch.features.depth import VideoDepthEstimator
 from tdspa_torch.features.dino import DinoFeatureExtractor
 from tdspa_torch.features.tracks import PyramidalLKTracker, make_query_grid
+from tdspa_torch.infer import export as export_lib
 from tdspa_torch.infer.pipeline import InferencePipeline, fused_tail, run_inference, save_results
 from tdspa_torch.infer.video import save_video
 from tdspa_torch.core.attention import ParallelTransformerBlock, reset_parameters
@@ -489,6 +513,41 @@ BACKWARD_SHAPES = [("encoder_3d", 2048, 151, 151, 8, 96, "rows"),
 # the pipeline's own tail: the same model and kernels on the same inputs
 # (bit-equal in the first reading).
 REBUILT_BATCH_RTOL = 1e-6
+# The matcher's training (phase matcher_train): the shipped round-4 recipe's
+# widths and scenes (tdspa/features/matcher.py's __main__), cut from its
+# 4000 steps to the 1500 of JAX's train_matcher default; one scene per step,
+# cycled. (On an H100, 300 steps left the last logged loss at 0.69 x the first.)
+MATCHER_RECIPE = dict(dim=16, radius=4, hidden=128, stride=2, fhidden=32, bank=3)
+MATCHER_ITERATIONS, MATCHER_OCCLUSION_WEIGHT, MATCHER_LR = 2, 8.0, 2e-3
+MATCHER_SCENES = dict(num_frames=24, height=128, width=192, grid_size=10,
+                      rot_rate_max=float(np.deg2rad(2.5)), deform_amp_max=5.0, natural_frac=0.5)
+MATCHER_NUM_SCENES, MATCHER_STEPS, MATCHER_RECIPE_STEPS, MATCHER_LOG_EVERY = 48, 1500, 4000, 100
+# The card against the port on the CPU: the first MATCHER_CPU_STEPS steps
+# from one initialisation with the same perturbations. The losses are f32
+# sums over the same values in another order on each device: 1e-4 relative.
+# The parameters: Adam moves an element whose gradient is rounding noise by
+# up to the step's rate either way, so within twice the sum of the steps'
+# rates (0 at step 0, under the warmup).
+MATCHER_CPU_STEPS, MATCHER_CPU_LOSS_RTOL = 3, 1e-4
+# JAX's own check of the training (tests/unit/test_matcher.py::
+# test_training_descends): the last logged loss below 0.6 x the first.
+MATCHER_DESCENT = 0.6
+# The exported tails (phase export): the default, quantised and fused-block
+# configurations of the pipeline phase's model, split and inputs; launches
+# per call, as the eager tail makes them.
+EXPORT_CONFIGS = {
+    "default": {"attention": FORWARD_LAUNCHES, "bilinear": TAIL_BILINEAR_LAUNCHES,
+                "quant_matmul": 0, "block": 0},
+    "quantize": {"attention": FORWARD_LAUNCHES, "bilinear": TAIL_BILINEAR_LAUNCHES,
+                 "quant_matmul": QUANT_LAUNCHES, "block": 0},
+    "fused_block": {"attention": FUSED_BLOCK_ATTENTION_LAUNCHES,
+                    "bilinear": TAIL_BILINEAR_LAUNCHES, "quant_matmul": 0,
+                    "block": BLOCK_LAUNCHES},
+}
+# An exported program against the eager tail (or forward) on the same
+# parameters and inputs: the same ops and kernels in the same order, so
+# bit-equal is expected; held to 1e-5 of each output's range.
+EXPORT_RTOL = 1e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -2098,7 +2157,8 @@ def phase_trajan2d() -> dict:
     bad = {k: v for k, v in agreement.items() if not v["rel_err"] <= PIPELINE_RTOL}
     if bad:
         raise AssertionError(f"2D model: kernel and plain attention disagree: {bad}")
-    return {"launches": launches, "forward_median_ms": statistics.median(times[1:])}
+    return {"launches": launches, "forward_median_ms": statistics.median(times[1:]),
+            "model": model, "batch": batch, "out": out}
 
 
 def phase_attention_backward() -> dict:
@@ -2440,6 +2500,388 @@ def phase_train_cli() -> dict:
     return rows
 
 
+def _forward_only_refusals() -> dict:
+    """The bilinear and cost-patch wrappers on CUDA tensors that autograd
+    records: each must raise (a kernel's output carries no gradient)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    feats = torch.randn((3, 10, 12, 16), generator=gen, device="cuda").requires_grad_()
+    pos = torch.rand((5, 3, 2), generator=gen, device="cuda") * 9
+    tvecs = torch.randn((5, 2, 16), generator=gen, device="cuda")
+    refused = {}
+    for name, call in (("bilinear_sample", lambda: bilinear_kernel(feats, pos)),
+                       ("cost_patches_multi", lambda: cost_patches_multi(feats, tvecs, pos))):
+        try:
+            call()
+            refused[name] = False
+        except NotImplementedError as err:
+            refused[name] = "forward-only" in str(err)
+    return refused
+
+
+def phase_matcher_train(noisy) -> dict:
+    """The matcher's training on the card at the shipped recipe's widths and
+    scenes: the CPU against the card for the first steps, the feature net's
+    gradient, MATCHER_STEPS steps (step ms, peak memory, the logged losses),
+    then the trained matcher saved, loaded and run by the tracker on the noisy
+    scene through csrc/matcher.cu, beside the shipped matcher."""
+    refused = _forward_only_refusals()
+    t0 = time.perf_counter()
+    videos, tracks, visible = matcher_lib.make_training_scenes(MATCHER_NUM_SCENES,
+                                                               **MATCHER_SCENES)
+    scenes_s = time.perf_counter() - t0
+    videos, tracks = torch.from_numpy(videos), torch.from_numpy(tracks)
+    visible = torch.from_numpy(visible.astype(np.float32))
+    reach = float(MATCHER_RECIPE["radius"] * MATCHER_RECIPE["stride"])
+    step_args = dict(iterations=MATCHER_ITERATIONS, occlusion_weight=MATCHER_OCCLUSION_WEIGHT)
+
+    # The card against the CPU from one initialisation and the same noise.
+    init = matcher_lib.init_matcher(**MATCHER_RECIPE, generator=torch.Generator().manual_seed(SEED),
+                                    device="cpu")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    noises = [(torch.rand(tracks[i].shape, generator=gen) * 2.0 - 1.0) * reach
+              for i in range(MATCHER_CPU_STEPS)]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = copy.deepcopy(init).to(device)
+        optimizer = matcher_lib.matcher_optimizer(MATCHER_LR, MATCHER_STEPS)
+        state = optimizer.init(dict(model.named_parameters()))
+        losses = []
+        for i in range(MATCHER_CPU_STEPS):
+            state, out = matcher_lib.matcher_train_step(
+                model, optimizer, state, videos[i].to(device), tracks[i].to(device),
+                visible[i].to(device), noises[i].to(device), **step_args)
+            losses.append([float(x) for x in out])
+        runs[device] = (model, losses)
+    cpu_losses, card_losses = np.asarray(runs["cpu"][1]), np.asarray(runs["cuda"][1])
+    loss_rel = float(np.max(np.abs(card_losses - cpu_losses) / np.abs(cpu_losses)))
+    cpu_params = dict(runs["cpu"][0].named_parameters())
+    param_err = max((p.detach().cpu() - cpu_params[k].detach()).abs().max().item()
+                    for k, p in runs["cuda"][0].named_parameters())
+    schedule = matcher_lib.matcher_optimizer(MATCHER_LR, MATCHER_STEPS).schedule
+    param_limit = 2.0 * sum(schedule(i) for i in range(MATCHER_CPU_STEPS))
+    # The feature net's gradient on the card: through the template vector, the
+    # cost patches and the bank (the plain route; a kernel would cut it).
+    model = runs["cuda"][0]
+    loss, _, _ = matcher_lib.matcher_loss(model, videos[0].cuda(), tracks[0].cuda(),
+                                          visible[0].cuda(), noises[0].cuda(), **step_args)
+    names = [k for k, _ in model.named_parameters() if k.startswith("feature.")]
+    grads = torch.autograd.grad(loss, [dict(model.named_parameters())[k] for k in names])
+    feature_grad = {k: g.norm().item() for k, g in zip(names, grads)}
+    del runs, model, loss, grads
+
+    # MATCHER_STEPS steps on the card, noise from a generator on the card.
+    videos, tracks, visible = videos.cuda(), tracks.cuda(), visible.cuda()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = matcher_lib.init_matcher(**MATCHER_RECIPE, generator=gen, device="cuda")
+    optimizer = matcher_lib.matcher_optimizer(MATCHER_LR, MATCHER_STEPS)
+    state = optimizer.init(dict(model.named_parameters()))
+    cost_patches_multi.launches = 0
+    bilinear_kernel.launches = 0
+    log, step_ms = [], []
+    t0 = time.perf_counter()
+    for i in range(MATCHER_STEPS):
+        s = i % MATCHER_NUM_SCENES
+        noise = (torch.rand(tracks[s].shape, generator=gen, device="cuda") * 2.0 - 1.0) * reach
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, out = matcher_lib.matcher_train_step(model, optimizer, state, videos[s], tracks[s],
+                                                    visible[s], noise, **step_args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if i % MATCHER_LOG_EVERY == 0 or i == MATCHER_STEPS - 1:
+            log.append((i, *(float(x) for x in out)))
+    train_s = time.perf_counter() - t0
+    train_launches = {"cost_patches_multi": cost_patches_multi.launches,
+                      "bilinear_sample": bilinear_kernel.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    warm_ms = statistics.median(step_ms[5:])
+
+    # Saved, loaded, and run by the tracker on the noisy scene, beside the
+    # shipped matcher: the cost patches through csrc/matcher.cu.
+    video = torch.from_numpy(noisy["video"]).cuda()
+    refine = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "matcher.npz")
+        matcher_lib.save_matcher(path, model)
+        loaded = matcher_lib.matcher_params_from_flax(matcher_lib.load_matcher(path), "cuda")
+        same = all(torch.equal(a, b) for a, b in zip(loaded.state_dict().values(),
+                                                      model.state_dict().values()))
+        for name, matcher in (("trained", path), ("shipped", "default")):
+            tracker = PyramidalLKTracker(**dict(TRACKER, matcher=matcher))
+            lk_kernel.track_video_lk_kernel.launches = 0
+            cost_patches_multi.launches = 0
+            out, wall_ms = _timed_call(tracker, video)
+            refine[name] = {"launches": {"lk": lk_kernel.track_video_lk_kernel.launches,
+                                         "matcher": cost_patches_multi.launches},
+                            "wall_ms": wall_ms, "quality": _quality(out, noisy)}
+    row = dict(recipe=MATCHER_RECIPE, iterations=MATCHER_ITERATIONS,
+               occlusion_weight=MATCHER_OCCLUSION_WEIGHT, scenes=MATCHER_NUM_SCENES,
+               scene_shape=list(videos.shape[1:]), points=int(tracks.shape[1]),
+               scenes_s=scenes_s, forward_only_refused=refused,
+               cpu_vs_card={"steps": MATCHER_CPU_STEPS, "cpu_losses": cpu_losses.tolist(),
+                            "card_losses": card_losses.tolist(), "loss_rel_err": loss_rel,
+                            "loss_rtol": MATCHER_CPU_LOSS_RTOL, "param_max_abs_err": param_err,
+                            "param_atol": param_limit},
+               feature_grad_norms=feature_grad, steps=MATCHER_STEPS, train_s=train_s,
+               step_ms_median=warm_ms, step_ms_first=step_ms[:5], peak_gb=peak_gb,
+               log=log, first_loss=log[0][1], last_loss=log[-1][1],
+               descent_limit=MATCHER_DESCENT,
+               recipe_steps=MATCHER_RECIPE_STEPS,
+               recipe_estimate_s=warm_ms * MATCHER_RECIPE_STEPS / 1e3,
+               training_launches=train_launches, saved_equals_trained=same, refine=refine)
+    emit("matcher_train", **row)
+    if not all(refused.values()):
+        raise AssertionError(f"forward-only wrappers recorded autograd on CUDA: {refused}")
+    if not loss_rel <= MATCHER_CPU_LOSS_RTOL or not param_err <= param_limit:
+        raise AssertionError(f"matcher training on the card differs from the CPU: losses "
+                             f"{loss_rel} (limit {MATCHER_CPU_LOSS_RTOL}), parameters "
+                             f"{param_err} (limit {param_limit})")
+    if not all(v > 0 for v in feature_grad.values()):
+        raise AssertionError(f"the feature net got no gradient on the card: {feature_grad}")
+    if not np.isfinite([r[1:] for r in log]).all() or not log[-1][1] < MATCHER_DESCENT * log[0][1]:
+        raise AssertionError(f"matcher training did not descend: {log}")
+    if any(train_launches.values()):
+        raise AssertionError(f"training launched a kernel (it runs the plain route): "
+                             f"{train_launches}")
+    if not same or any(r["launches"] != {"lk": 1, "matcher": MATCHER_LAUNCHES}
+                       for r in refine.values()):
+        raise AssertionError(f"trained matcher's refinement: saved == trained {same}, "
+                             f"{refine}")
+    del videos, tracks, visible, model, video
+    torch.cuda.empty_cache()
+    return {"training_launches": train_launches, "refine_launches":
+            {k: v["launches"]["matcher"] for k, v in refine.items()},
+            "step_ms_median": warm_ms}
+
+
+EXPORT_CALL = r"""
+import json, sys, time
+import torch
+from tdspa_torch.infer.export import load_exported
+from tdspa_torch.kernels import attention, bilinear, block, quant_matmul
+tmp, names = sys.argv[1], sys.argv[2].split(",")
+data = torch.load(f"{tmp}/inputs.pt", map_location="cuda")
+args = (data["params"], data["perm"], data["ts"], *data["inputs"])
+counters = {"attention": attention.fused_masked_attention, "bilinear": bilinear.bilinear_sample,
+            "quant_matmul": quant_matmul.quant_matmul, "block": block.fused_transformer_block}
+rows = {}
+for name in names:
+    t0 = time.perf_counter()
+    program = load_exported(f"{tmp}/tail_{name}.pt2")
+    load_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        program.call(*args)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            out = program.call(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: c.launches for k, c in counters.items()}
+    torch.save({k: v.cpu() for k, v in out.items()}, f"{tmp}/out_{name}.pt")
+    rows[name] = {"load_s": load_s, "call_ms": times, "launches_per_call": launches}
+    del program, out
+model_modules = sorted(m for m in sys.modules
+                       if m.startswith(("tdspa_torch.models", "tdspa_torch.infer.pipeline")))
+print(json.dumps({"rows": rows, "model_modules": model_modules}))
+"""
+
+
+def phase_export(path, tmp: str) -> dict:
+    """The full-width tail exported on the card in each serving
+    configuration, saved, loaded and called in a process that imports no
+    model module, against the eager ``fused_tail`` on the same parameters,
+    split and inputs; then a manifest that disagrees with the pipeline."""
+    providers, base = path["providers"], path["pipeline"].model
+    num_tracks = GRID * GRID
+    perm, ts = path["pipeline"].split_indices(num_tracks, 512, NUM_FRAMES)
+    inputs = (providers.tracks, providers.visible, providers.dino, providers.depth)
+    shapes = dict(num_tracks=num_tracks, num_frames=NUM_FRAMES, video_hw=(HEIGHT, WIDTH),
+                  num_support=2048, num_queries=512, use_dino=True, use_depth=True)
+    params = export_lib.serving_params(base)
+    torch.save({"params": params, "perm": perm, "ts": ts, "inputs": inputs},
+               os.path.join(tmp, "inputs.pt"))
+    counters = {"attention": fused_masked_attention, "bilinear": bilinear_kernel,
+                "quant_matmul": qmm.quant_matmul, "block": fused_transformer_block}
+    rows, eager = {}, {}
+    for knob in EXPORT_CONFIGS:
+        model = base
+        if knob != "default":
+            model = TrackAutoEncoder3D(num_output_frames=NUM_FRAMES, dtype=torch.bfloat16,
+                                       fused_attention=True, device="cuda", **{knob: True})
+            model.load_state_dict(base.state_dict())
+        t0 = time.perf_counter()
+        program = export_lib.export_serving_tail(model, **shapes)
+        export_s = time.perf_counter() - t0
+        file = os.path.join(tmp, f"tail_{knob}.pt2")
+        t0 = time.perf_counter()
+        manifest = export_lib.save_exported(
+            program, file, export_lib.tail_config(model, device="cuda", **shapes))
+        save_s = time.perf_counter() - t0
+        times = []
+        with torch.inference_mode():
+            for _ in range(RUNS):
+                for c in counters.values():
+                    c.launches = 0
+                (pred, batch, tracks_3d), ms = _timed_call(
+                    fused_tail, model, *inputs, perm, ts, 2048, 512, (HEIGHT, WIDTH))
+                times.append(ms)
+        eager_launches = {k: c.launches for k, c in counters.items()}
+        eager[knob] = {"tracks": pred.tracks, "visible_logits": pred.visible_logits,
+                       "certain_logits": pred.certain_logits,
+                       "query_points": batch["query_points"], "tracks_3d": tracks_3d,
+                       "support_tracks": batch["support_tracks"],
+                       "query_tracks": batch["query_tracks"]}
+        rows[knob] = dict(export_s=export_s, save_s=save_s, artifact_bytes=manifest["bytes"],
+                          tdspa_ops=manifest["tdspa_ops"],
+                          graph_nodes=len(program.graph.nodes), eager_ms=times,
+                          eager_median_ms=statistics.median(times[1:]),
+                          eager_launches=eager_launches)
+        del program, pred, batch, tracks_3d
+        if model is not base:
+            del model
+        torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_CALL, tmp, ",".join(EXPORT_CONFIGS)],
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"exported tails failed in a fresh process: {proc.stderr[-3000:]}")
+    called = json.loads(proc.stdout.strip().splitlines()[-1])
+    for knob, row in rows.items():
+        out = torch.load(os.path.join(tmp, f"out_{knob}.pt"))
+        row.update(called["rows"][knob])
+        row["call_median_ms"] = statistics.median(row["call_ms"])
+        row["vs_eager"] = {k: _rel_err(out[k], eager[knob][k].cpu()) if k != "certain_logits"
+                           else {"max_abs_err": (out[k] - eager[knob][k].cpu()).abs().max().item()}
+                           for k in out}
+        # certain_logits are zeros by design (3DSPA): held to 0 exactly.
+        row["max_rel_err"] = max(v.get("rel_err", v["max_abs_err"])
+                                 for v in row["vs_eager"].values())
+        row["expected_launches"] = EXPORT_CONFIGS[knob]
+        emit("export", config=knob, rtol=EXPORT_RTOL, **row)
+    del eager
+    # A manifest that disagrees with the pipeline (another quantize) is refused.
+    other = os.path.join(tmp, "tail_other.pt2")
+    shutil.copyfile(os.path.join(tmp, "tail_default.pt2"), other)
+    with open(os.path.join(tmp, "tail_default.pt2.json")) as f:
+        manifest = json.load(f)
+    with open(other + ".json", "w") as f:
+        json.dump({**manifest, "quantize": True}, f)
+    pipe = InferencePipeline(num_output_frames=NUM_FRAMES, track_provider=providers.track,
+                             dino_extractor=providers.dino_grid,
+                             depth_provider=providers.depth_maps, model=base, seed=SEED,
+                             tail_artifact=other, device="cuda")
+    try:
+        pipe.run_on_frames(path["video"])
+        mismatch = "ran"
+    except ValueError as err:
+        mismatch = str(err)[:300]
+    emit("export_manifest_check", refused="quantize" in mismatch, message=mismatch)
+    if called["model_modules"]:
+        raise AssertionError(f"the loading process imported model modules: "
+                             f"{called['model_modules']}")
+    for knob, row in rows.items():
+        if row["eager_launches"] != EXPORT_CONFIGS[knob] \
+                or row["launches_per_call"] != EXPORT_CONFIGS[knob]:
+            raise AssertionError(f"export {knob}: launches {row['launches_per_call']} per call, "
+                                 f"eager {row['eager_launches']}; expected "
+                                 f"{EXPORT_CONFIGS[knob]}")
+        if not row["max_rel_err"] <= EXPORT_RTOL:
+            raise AssertionError(f"export {knob} differs from the eager tail: {row['vs_eager']}")
+    if "quantize" not in mismatch:
+        raise AssertionError(f"a mismatched manifest was not refused: {mismatch}")
+    return {k: {"launches_per_call": v["launches_per_call"], "call_median_ms": v["call_median_ms"],
+                "export_s": v["export_s"], "artifact_bytes": v["artifact_bytes"]}
+            for k, v in rows.items()}
+
+
+def phase_export_forward(trajan) -> dict:
+    """``export_model_forward`` of the default TRAJAN-2D (phase trajan2d's
+    model and batch), called against its eager forward."""
+    model, batch, want = trajan["model"], trajan["batch"], trajan["out"]
+    params = export_lib.serving_params(model)
+    t0 = time.perf_counter()
+    program = export_lib.export_model_forward(model, params, batch)
+    export_s = time.perf_counter() - t0
+    module = program.module()
+    fused_masked_attention.launches = 0
+    with torch.inference_mode():
+        out, call_ms = _timed_call(module, params, batch)
+    launches = fused_masked_attention.launches
+    agreement = {k: _rel_err(out[k], getattr(want, k)) for k in out}
+    emit("export_forward_2d", export_s=export_s, graph_nodes=len(program.graph.nodes),
+         call_ms=call_ms, eager_median_ms=trajan["forward_median_ms"], launches=launches,
+         vs_eager=agreement, rtol=EXPORT_RTOL)
+    if launches != TRAJAN_FORWARD_LAUNCHES or any(v["rel_err"] > EXPORT_RTOL
+                                                  for v in agreement.values()):
+        raise AssertionError(f"exported 2D forward: {launches} launches, {agreement}")
+    return {"launches": launches}
+
+
+def phase_export_entry(scene, full, tmp: str) -> dict:
+    """``InferencePipeline(tail_artifact=...)`` on the clean scene with
+    phase pipeline_full's front ends and model, against that phase's
+    predictions; then the infer CLI with ``--tail_artifact``."""
+    artifact = os.path.join(tmp, "tail_default.pt2")
+    eager = full["pipeline"]
+    pipe = InferencePipeline(num_output_frames=NUM_FRAMES, tracking_grid_size=GRID, seed=SEED,
+                             model=eager.model, track_provider=eager.track_provider,
+                             dino_extractor=eager.dino_extractor,
+                             depth_provider=eager.depth_provider, tail_artifact=artifact,
+                             device="cuda")
+    counters = _pipeline_counters()
+    rows = {}
+    for fn in counters.values():
+        fn.launches = 0
+    results, wall_ms = _timed_call(pipe.run_on_frames, scene["video"])
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = full["tail_inputs"]["predictions"]
+    agreement = {k: _rel_err(getattr(results["predictions"], k), getattr(want, k))
+                 for k in ("tracks", "visible_logits")}
+    rows["pipeline"] = dict(wall_ms=wall_ms, launches=launches, vs_eager_pipeline=agreement,
+                            timings_ms={k: v * 1e3 for k, v in results["timings"].items()})
+    del results, pipe
+    video_path = os.path.join(tmp, "clean.mp4")
+    save_video(scene["video"], video_path)
+    ckpt = os.path.join(tmp, "seeded_3dspa.npz")
+    np.savez(ckpt, **{k.replace(".", "/"): v.float().cpu().numpy()
+                      for k, v in eager.model.state_dict().items()})
+    for fn in counters.values():
+        fn.launches = 0
+    results, cli_ms = _timed_call(lambda: infer_cli.main([
+        f"--video_path={video_path}", f"--checkpoint_path={ckpt}",
+        f"--output_dir={os.path.join(tmp, 'out')}", f"--num_output_frames={NUM_FRAMES}",
+        f"--tracking_grid_size={GRID}", f"--seed={SEED}", f"--tail_artifact={artifact}",
+        "--device=cuda"]))
+    cli_launches = {k: fn.launches for k, fn in counters.items()}
+    finite = bool(torch.isfinite(results["predictions"].tracks).all())
+    with np.load(os.path.join(tmp, "out", "predictions.npz")) as saved:
+        saved_shapes = {k: list(saved[k].shape) for k in saved.files}
+    rows["cli"] = dict(wall_ms=cli_ms, launches=cli_launches, finite=finite, saved=saved_shapes)
+    emit("export_entry", rtol=EXPORT_RTOL, **rows)
+    tail = {"attention": FORWARD_LAUNCHES, "bilinear": TAIL_BILINEAR_LAUNCHES}
+    for name, row in rows.items():
+        if {k: row["launches"][k] for k in tail} != tail:
+            raise AssertionError(f"export entry {name}: launches {row['launches']}")
+    if any(v["rel_err"] > EXPORT_RTOL for v in agreement.values()) or not finite \
+            or saved_shapes["tracks_3d"] != [512, NUM_FRAMES, 3]:
+        raise AssertionError(f"export entry points: {rows}")
+    return {k: v["launches"] for k, v in rows.items()}
+
+
+def _export_launches(counter: str, exported: dict, entry: dict | None = None) -> dict:
+    """One kernel's launches per call of each exported tail (and, given the
+    entry points' rows, per run of the pipeline and the CLI on the default
+    artifact)."""
+    rows = {f"export_{k}": v["launches_per_call"][counter] for k, v in exported.items()}
+    if entry is not None:
+        rows.update({f"export_entry_{k}": v[counter] for k, v in entry.items()})
+    return rows
+
+
 def main(argv: list[str]) -> int:
     info = phase_device()
     phase_build()
@@ -2453,12 +2895,15 @@ def main(argv: list[str]) -> int:
     bilinear_totals = phase_bilinear_kernel(path["providers"])
     quantized = phase_serving(path, "quantize", profile="--profile" in argv)
     fused_block = phase_serving(path, "fused_block", profile="--profile" in argv)
+    export_dir = tempfile.TemporaryDirectory()
+    exported = phase_export(path, export_dir.name)
     del path["pipeline"], path["providers"]
     torch.cuda.empty_cache()
     scenes = make_scenes()
     lk = phase_lk_kernel(scenes["clean"])
     matcher = phase_matcher_kernel(scenes["clean"], lk.pop("tracks"))
     phase_tracking(scenes)
+    matcher_train = phase_matcher_train(scenes["noisy"])
     tracked = phase_pipeline_tracked(scenes)
     if "--profile" in argv:
         profile_pipeline(tracked["pipeline"], tracked["video"], "upload_tracking_features")
@@ -2471,11 +2916,15 @@ def main(argv: list[str]) -> int:
     tier_rows = phase_tracking_tiers()
     realism = phase_realism(full)
     video_entry = phase_video_entry(scenes["clean"], full)
+    export_entry = phase_export_entry(scenes["clean"], full, export_dir.name)
+    export_dir.cleanup()
     full_launches = full["launches"]
     del full
     torch.cuda.empty_cache()
     harness_row = phase_eval_harness()
     trajan = phase_trajan2d()
+    export_forward = phase_export_forward(trajan)
+    del trajan["model"], trajan["batch"], trajan["out"]
     torch.cuda.empty_cache()
     backward = phase_attention_backward()
     train_3d = phase_train("3dspa", profile="--profile" in argv)
@@ -2518,6 +2967,8 @@ def main(argv: list[str]) -> int:
             "eval_harness_forwards": harness_row["forwards"],
             "realism": realism["launches"],
             "video_entry": {k: v["attention"] for k, v in video_entry.items()},
+            **_export_launches("attention", exported, export_entry),
+            "export_forward_2d": export_forward["launches"],
         },
     }]
     main_lk = lk["pipeline"]
@@ -2562,6 +3013,10 @@ def main(argv: list[str]) -> int:
         else "operations",
         "library_ms": None,
         "launch_ms": {"templates_1": matcher[1]["ms"], "templates_4": matcher[4]["ms"]},
+        "launches_on_new_paths": {"matcher_train": {
+            "training": matcher_train["training_launches"]["cost_patches_multi"],
+            "refine_trained": matcher_train["refine_launches"]["trained"],
+            "refine_shipped": matcher_train["refine_launches"]["shipped"]}},
         "per": ("one matcher pass over a video (4 launches with 1 template and 4 with 4, "
                 "4096 points x 150 frames); launches counted over the noisy-video pipeline run"),
     })
@@ -2602,6 +3057,7 @@ def main(argv: list[str]) -> int:
         "wrapper_ms": quant_totals["wrapper_ms"],
         "per": (f"one quantised forward: the {QUANT_LAUNCHES} launches at their shapes, f32 x; "
                 f"launches counted over {RUNS} pipeline_quantized runs"),
+        "launches_on_new_paths": _export_launches("quant_matmul", exported),
     })
     kernels.append({
         "name": "fused_transformer_block",
@@ -2619,6 +3075,7 @@ def main(argv: list[str]) -> int:
         "unfused_ms": block_totals["unfused_ms"],
         "stage_ms": block_totals["stage_ms"],
         "cuda_kernels_per_call": KERNELS_PER_CALL,
+        "launches_on_new_paths": _export_launches("block", exported),
         "per": (f"one fused-block forward: {BLOCK_LAUNCHES} layers (4 readout, 4 decompress), "
                 f"f32 residual; launches counted over {RUNS} pipeline_fused_block runs"),
     })
@@ -2638,7 +3095,9 @@ def main(argv: list[str]) -> int:
         "library": BILINEAR_LIBRARY,
         "per": (f"one fused_tail: {TAIL_BILINEAR_LAUNCHES} launches (the DINO grid once, the "
                 f"depth maps twice), f32 output; launches counted over {RUNS} pipeline runs"),
-        "launches_on_new_paths": {"video_entry": {k: v["bilinear"] for k, v in video_entry.items()}},
+        "launches_on_new_paths": {
+            "video_entry": {k: v["bilinear"] for k, v in video_entry.items()},
+            **_export_launches("bilinear", exported, export_entry)},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

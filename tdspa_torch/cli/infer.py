@@ -7,9 +7,10 @@ Example (on the GPU; ``--device=cpu`` runs the plain versions on the CPU):
 
 Writes ``predictions.npz`` and ``video_info.txt`` in the reference's schema.
 ``--device`` (default ``cuda``) is the only flag the JAX CLI does not have.
-Four flags name pieces the port does not have yet and raise:
+Three flags name pieces the port does not have yet and raise:
 ``--track_provider=cotracker`` and ``--vda_torch_adapter`` (external
-packages), ``--tail_artifact`` (the export slice) and ``--debug_nans``.
+packages) and ``--debug_nans``. ``--tail_artifact`` runs a tail exported by
+``tdspa_torch.cli.export``.
 """
 
 from __future__ import annotations
@@ -71,7 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="LK tracker: learned matching head ('' disables, 'auto' = on degraded video, "
              "'default' = always the shipped matcher, else a matcher .npz path)")
     F.boolean(p, "debug_nans", False, "Raise on the first NaN (not in the port)")
-    arg("--tail_artifact", help="Pre-exported fused-tail artifact (not in the port)")
+    arg("--tail_artifact",
+        help="Exported fused-tail artifact (tdspa_torch.cli.export) to run in place of the "
+             "traced tail; its manifest must match these flags")
     arg("--profile_dir",
         help="Write a torch.profiler (Chrome/Perfetto) trace of the pipeline run here")
     arg("--device", default="cuda", help="Where the pipeline runs: cuda (default) or cpu")
@@ -90,9 +93,6 @@ def check_supported(args) -> None:
                        "Video-Depth-Anything repository (ROADMAP.md, queue 1: not queued, "
                        "outside the repository); --vda_model_path alone converts the .pth "
                        "into the port's estimator")
-    if args.tail_artifact:
-        missing.append("--tail_artifact needs the exported tail of the export slice "
-                       "(ROADMAP.md, queue 1, item 6)")
     if args.debug_nans:
         missing.append("--debug_nans is JAX's jax_debug_nans; the port's counterpart comes "
                        "with tdspa/utils/debug.py (ROADMAP.md, queue 1, item 8)")
@@ -156,6 +156,7 @@ def pipeline_kwargs(args) -> dict:
         gelu_approximate=args.fast_gelu,
         tracking_input_scale=args.tracking_input_scale,
         fused_block=args.fused_block,
+        tail_artifact=args.tail_artifact,
         device=args.device,
     )
 

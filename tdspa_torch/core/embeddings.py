@@ -17,10 +17,9 @@ from torch import nn
 def sinusoidal_embedding(inputs: torch.Tensor, num_frequencies: int) -> torch.Tensor:
     """float[*B C] -> float[*B C*2F] Fourier features over ``2**(i/3)``."""
     dtype = inputs.dtype if inputs.is_floating_point() else torch.float32
-    scales = torch.tensor(
-        [2 ** (i / 3) for i in range(num_frequencies)], dtype=dtype,
-        device=inputs.device,
-    )
+    # Made on the CPU and moved: a traced program keeps it as a constant.
+    scales = torch.tensor([2 ** (i / 3) for i in range(num_frequencies)], dtype=dtype).to(
+        inputs.device)
     x = inputs[..., None] * scales  # (..., C, F)
     out = torch.sin(torch.cat([x, x + 0.5 * math.pi], dim=-1))  # (..., C, 2F)
     return out.flatten(-2)

@@ -102,7 +102,7 @@ def split_and_sample_queries(
         "query_points": query_points[None],
         "query_tracks": query_tracks[None],
         "query_tracks_visible": visible[query_idx][None],
-        "boundary_frame": torch.tensor([num_frames], device=tracks.device),
+        "boundary_frame": torch.full((1,), num_frames, device=tracks.device),
     }
     if dino_features is not None:
         out["dino_features"] = dino_features[support_idx][None]

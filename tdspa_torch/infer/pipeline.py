@@ -20,6 +20,7 @@ CUDA kernel (``tdspa_torch/csrc/attention.cu``) and the tail's three
 bilinear samplings in ``csrc/bilinear.cu``. Two serving configurations of
 the model, as in JAX: ``quantize=True`` (int8 projections,
 ``csrc/quant_matmul.cu``) and ``fused_block=True`` (``csrc/block.cu``).
+``tail_artifact`` runs an exported tail (``infer/export.py``) in its place.
 
 Output schema (``predictions.npz`` + ``video_info.txt``) is the JAX
 package's.
@@ -27,6 +28,7 @@ package's.
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
@@ -42,6 +44,7 @@ from tdspa_torch.infer.checkpoint import check_params_structure, load_checkpoint
 from tdspa_torch.infer.convert import params_from_flax
 from tdspa_torch.infer.video import load_video
 from tdspa_torch.models import TrackAutoEncoder3D
+from tdspa_torch.models.containers import TrackAutoEncoderResults
 from tdspa_torch.ops.geometry import (
     lift_2d_to_3d,
     sample_depth_features_for_tracks,
@@ -98,6 +101,10 @@ class InferencePipeline:
     ``params`` is a flax-layout parameter tree (e.g. from the JAX package or
     ``load_params_tree``); ``checkpoint_path`` an ``.npz`` checkpoint. With
     neither, the model keeps its seeded random initialisation.
+    ``tail_artifact`` is an exported tail (``infer/export.py``) run in place
+    of ``fused_tail`` with the model's parameters; its manifest must match
+    this pipeline's configuration (``ValueError`` otherwise). ``mesh`` waits
+    for the multi-GPU slice.
     """
 
     def __init__(
@@ -135,10 +142,6 @@ class InferencePipeline:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: the sharded tail comes with the multi-GPU slice (ROADMAP.md)"
-            )
-        if tail_artifact is not None:
-            raise NotImplementedError(
-                "tail_artifact: exported tails come with the export slice (ROADMAP.md)"
             )
         self.device = resolve_device(device)
         self.num_output_frames = num_output_frames
@@ -191,6 +194,13 @@ class InferencePipeline:
         self.projection_policy = projection_policy
         self.timings: dict[str, float] = {}
         self.load_params()
+        # An exported tail (infer/export.py) in place of fused_tail: loaded at
+        # the first run, called with the model's parameters (the same
+        # tensors every call, which the kernels' caches key on).
+        self.tail_artifact = tail_artifact
+        self._artifact = None
+        if tail_artifact:
+            self._artifact_params = dict(self.model.state_dict())
 
     @property
     def track_provider(self):
@@ -341,10 +351,11 @@ class InferencePipeline:
         num_queries = min(self.num_query_points, max(num_tracks - num_support, 1))
         perm, ts = self.split_indices(num_tracks, num_queries, t)
 
+        tail = (self._artifact_tail if self.tail_artifact
+                else functools.partial(fused_tail, self.model))
         predictions, batch, tracks_3d = self._timed(
-            "fused_tail", fused_tail, self.model, tracks_2d, visible, dino_grid,
-            depth_maps, perm, ts, num_support, num_queries, (h, w),
-            self.use_dino, self.use_depth,
+            "fused_tail", tail, tracks_2d, visible, dino_grid, depth_maps, perm, ts, num_support,
+            num_queries, (h, w), self.use_dino, self.use_depth,
         )
         return {
             "predictions": predictions,
@@ -357,6 +368,36 @@ class InferencePipeline:
             "fps": fps,
             "timings": dict(self.timings),
         }
+
+    def _artifact_tail(self, tracks_2d, visible, dino_grid, depth_maps, perm, ts,
+                       num_support: int, num_queries: int, video_hw: tuple, use_dino: bool,
+                       use_depth: bool):
+        """``fused_tail`` through the exported artifact, after a check of its
+        manifest against this pipeline's configuration (JAX runs the
+        artifact's own split and shapes without one)."""
+        from tdspa_torch.infer.export import load_exported, read_manifest, tail_config
+
+        manifest = read_manifest(self.tail_artifact)
+        want = tail_config(
+            self.model, num_tracks=tracks_2d.shape[0], num_frames=tracks_2d.shape[1],
+            video_hw=video_hw, num_support=num_support, num_queries=num_queries,
+            use_dino=use_dino, use_depth=use_depth, device=self.device.type,
+        )
+        wrong = {k: (manifest.get(k), v) for k, v in want.items() if manifest.get(k) != v}
+        if wrong:
+            raise ValueError(f"tail artifact {self.tail_artifact} was exported for another "
+                             f"configuration; (manifest, pipeline) differ at {wrong}")
+        if self._artifact is None:
+            self._artifact = load_exported(self.tail_artifact)
+        features = [x for x, used in ((dino_grid, use_dino), (depth_maps, use_depth)) if used]
+        out = self._artifact.call(self._artifact_params, perm, ts, tracks_2d,
+                                  visible.to(torch.float32), *features)
+        predictions = TrackAutoEncoderResults(
+            tracks=out["tracks"], visible_logits=out["visible_logits"],
+            certain_logits=out["certain_logits"],
+        )
+        batch = {"support_tracks": out["support_tracks"], "query_tracks": out["query_tracks"]}
+        return predictions, batch, out["tracks_3d"]
 
     def run(self, video_path: str) -> dict:
         """Full pipeline on a video file: its first ``num_output_frames``

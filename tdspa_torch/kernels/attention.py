@@ -23,8 +23,11 @@ Replaces the TPU kernels of ``tdspa/kernels/attention.py``:
 Both wrappers launch their kernel for CUDA tensors and run
 ``attention_reference`` for CPU tensors; neither falls back from one to the
 other. Each counts its own launches. Both are forward-only, as the Pallas
-kernels are. Training differentiates through ``fused_attention_fn``, the port
-of JAX's ``fused_attention`` (a ``custom_vjp``): its forward is
+kernels are. ``fused_masked_attention`` goes through the custom op
+``tdspa::fused_masked_attention`` (``kernels/ops.py``), which
+``torch.export`` keeps in an exported program. Training differentiates
+through ``fused_attention_fn``, the port of JAX's ``fused_attention`` (a
+``custom_vjp``): its forward is
 ``fused_masked_attention`` with f32 output, its backward recomputes
 ``xla_reference`` (JAX's ``_xla_reference``) under autograd, the trade JAX
 makes. The JAX package has no backward kernel to port.
@@ -130,32 +133,46 @@ def _kernel():
 def fused_masked_attention(q, k, v, key_mask=None, out_dtype=torch.float32):
     """Fused attention: q [B,S,H,D], k/v [B,K,H,D], key_mask [B,K] -> [B,S,H,D].
 
+    Runs the custom op ``tdspa::fused_masked_attention`` (``kernels/ops.py``).
     CUDA tensors launch the Hopper kernel, which takes contiguous bf16
     q/k/v with D a multiple of 8 up to 128 and a bool or float key mask;
-    anything else raises. CPU tensors run ``attention_reference``.
+    anything else raises. CPU tensors run ``attention_reference`` (directly
+    where autograd records, since the op has no autograd formula).
     ``fused_masked_attention.launches`` counts kernel launches.
     """
+    from tdspa_torch.kernels import ops
+
     _check(q, k, v, key_mask, out_dtype)
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, key_mask, out_dtype)
+        if ops.records(q, k, v):
+            return attention_reference(q, k, v, key_mask, out_dtype)
+        return ops.fused_masked_attention(q, k, v, key_mask, out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise TypeError(f"kernel takes bf16 q/k/v, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("kernel takes contiguous, 16-byte aligned q/k/v")
-    batch, seq, heads, depth = q.shape
-    kv_len = k.shape[1]
-    if depth % 8 or not 8 <= depth <= 128 or seq == 0 or kv_len == 0:
+    depth = q.shape[-1]
+    if depth % 8 or not 8 <= depth <= 128 or q.shape[1] == 0 or k.shape[1] == 0:
         raise ValueError(f"kernel takes D in 8..128 (multiple of 8) and S, K > 0; got {tuple(q.shape)}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if ops.records(q, k, v):
         raise NotImplementedError(
             "fused_masked_attention is forward-only; differentiate through "
             "fused_attention_fn (f32 output), whose backward is JAX's recompute"
         )
+    if key_mask is not None and key_mask.dtype != torch.bool:
+        key_mask = key_mask != 0
+    return ops.fused_masked_attention(q, k, v, key_mask, out_dtype)
+
+
+def launch(q, k, v, key_mask, out_dtype):
+    """The kernel's launch on checked CUDA operands (the op's CUDA
+    implementation): contiguous, 16-byte aligned bf16 q/k/v, a bool key mask
+    or None."""
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("kernel takes contiguous, 16-byte aligned q/k/v")
+    batch, seq, heads, depth = q.shape
+    kv_len = k.shape[1]
     if key_mask is not None:
-        if key_mask.dtype != torch.bool:
-            key_mask = key_mask != 0
         key_mask = key_mask.contiguous()
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     if out.numel() == 0:

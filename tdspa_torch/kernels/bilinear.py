@@ -10,8 +10,11 @@ arithmetic in its order and without contraction, so the two agree bit for
 bit.
 
 ``bilinear_sample`` launches the kernel for CUDA tensors and runs
-``bilinear_sample_reference`` for CPU tensors; it never falls back from one
-to the other. ``bilinear_sample.launches`` counts kernel launches.
+``bilinear_sample_reference`` for CPU tensors, through the custom op
+``tdspa::bilinear_sample`` (``kernels/ops.py``); it never falls back from one
+to the other. The kernel is forward-only: on CUDA tensors that autograd
+records the wrapper raises (a kernel's output has no ``grad_fn``).
+``bilinear_sample.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -71,10 +74,14 @@ def bilinear_sample(grid, coords, out_dtype=None):
     """grid [T, H, W, C] sampled at coords [N, T, 2] (x, y) -> [N, T, C].
 
     ``out_dtype`` defaults to the grid's dtype, as the TPU kernel writes.
-    CUDA tensors launch the kernel, which takes an f32 or bf16 grid, f32
-    coordinates and an f32 or bf16 output; anything else raises. CPU tensors
-    run ``bilinear_sample_reference``.
+    Runs the custom op ``tdspa::bilinear_sample`` (``kernels/ops.py``). CUDA
+    tensors launch the kernel, which takes an f32 or bf16 grid, f32
+    coordinates and an f32 or bf16 output, and is forward-only; anything
+    else raises. CPU tensors run ``bilinear_sample_reference`` (directly,
+    and differentiably, where autograd records).
     """
+    from tdspa_torch.kernels import ops
+
     out_dtype = grid.dtype if out_dtype is None else out_dtype
     if grid.dim() != 4 or coords.dim() != 3 or coords.shape[-1] != 2 \
             or coords.shape[1] != grid.shape[0]:
@@ -84,13 +91,25 @@ def bilinear_sample(grid, coords, out_dtype=None):
         raise ValueError(f"grid and coords lie on different devices: {grid.device}, "
                          f"{coords.device}")
     if grid.device.type == "cpu":
-        return bilinear_sample_reference(grid, coords, out_dtype)
+        if ops.records(grid, coords):
+            return bilinear_sample_reference(grid, coords, out_dtype)
+        return ops.bilinear_sample(grid, coords, out_dtype)
     if grid.device.type != "cuda":
         raise ValueError(f"unsupported device {grid.device}")
     if grid.dtype not in (torch.float32, torch.bfloat16) or coords.dtype != torch.float32 \
             or out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel takes an f32/bf16 grid, f32 coords and an f32/bf16 output; "
                         f"got {grid.dtype}, {coords.dtype}, {out_dtype}")
+    if ops.records(grid, coords):
+        raise NotImplementedError(
+            "bilinear_sample is forward-only on CUDA tensors: its output would carry no "
+            "gradient; differentiate through bilinear_sample_reference"
+        )
+    return ops.bilinear_sample(grid, coords, out_dtype)
+
+
+def launch(grid, coords, out_dtype):
+    """The kernel's launch on checked CUDA operands (the op's CUDA implementation)."""
     frames, height, width, channels = grid.shape
     n = coords.shape[0]
     grid, coords = grid.contiguous(), coords.contiguous()

@@ -22,7 +22,9 @@ head's row, an attention stage per (item, head) with all keys in shared
 memory, the out-projection GEMM with bias and residual, LayerNorm, the MLP
 GEMMs with bias and GELU or bias and residual). The four GEMMs are one
 persistent TMA + ``wgmma`` kernel with four epilogues. One wrapper call
-counts as one block launch (``fused_transformer_block.launches``).
+counts as one block launch (``fused_transformer_block.launches``), made
+through the custom op ``tdspa::fused_transformer_block`` (``kernels/ops.py``),
+which takes the layer's parameters and caches their flattened operands.
 
 The kernel takes a head width in ``HEAD_DIMS``, at most ``MAX_SEQ`` tokens
 and widths that are multiples of 8 (``kernel_takes``); the model routes a
@@ -38,6 +40,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from tdspa_torch.kernels import build
 
@@ -86,19 +89,50 @@ def flatten_block_params(params) -> dict[str, torch.Tensor]:
     return {k: v.to(torch.bfloat16).contiguous() for k, v in ops.items()}
 
 
-def _operands(block) -> dict[str, torch.Tensor]:
-    """Flattened operands of a module, cached on it until a parameter changes
-    (a new tensor or an in-place update such as ``load_state_dict``)."""
-    if not isinstance(block, torch.nn.Module):
-        return flatten_block_params(block)
-    params = dict(block.named_parameters())
-    key = tuple((name, p.data_ptr(), p._version) for name, p in params.items())
-    cached = getattr(block, "_block_operands", None)
+# The layer's parameters by state_dict name, in the order the custom op
+# ``tdspa::fused_transformer_block`` takes them.
+PARAMS = (
+    "norm_q.scale", "self_att.dense_query.kernel", "self_att.dense_key.kernel",
+    "self_att.dense_value.kernel", "self_att.norm_query.scale", "self_att.norm_key.scale",
+    "self_att.dense_out.kernel", "self_att.dense_out.bias", "norm_attn.scale",
+    "MLP_in.kernel", "MLP_in.bias", "MLP_out.kernel", "MLP_out.bias",
+)
+
+# Flattened operands per parameter set: the first parameter (a view's base)
+# keys the entry, so it dies with the tensor; inside it, every parameter's
+# address, version counter and shape, so a new tensor or an in-place update
+# (``load_state_dict``) flattens anew.
+_OPERANDS = WeakIdKeyDictionary()
+
+
+def cached_operands(params) -> dict[str, torch.Tensor]:
+    """``flatten_block_params`` of the parameters (in ``PARAMS`` order),
+    computed once per state of them. Inference tensors keep no version
+    counter and are flattened on every call."""
+    params = list(params)
+    named = dict(zip(PARAMS, params))
+    if any(p.is_inference() for p in params):
+        return flatten_block_params(named)
+    owner = params[0] if params[0]._base is None else params[0]._base
+    key = tuple((p.data_ptr(), p._version, tuple(p.shape)) for p in params)
+    cached = _OPERANDS.get(owner)
     if cached is None or cached[0] != key:
         with torch.inference_mode(False), torch.no_grad():
-            cached = (key, flatten_block_params(params))
-        block._block_operands = cached
+            cached = (key, flatten_block_params(named))
+        _OPERANDS[owner] = cached
     return cached[1]
+
+
+def block_params(block) -> list[torch.Tensor]:
+    """The layer's parameters in ``PARAMS`` order, from the module or a
+    mapping by state_dict name."""
+    named = dict(block.named_parameters()) if isinstance(block, torch.nn.Module) else block
+    return [named[name] for name in PARAMS]
+
+
+def _operands(block) -> dict[str, torch.Tensor]:
+    """Flattened operands of a module or mapping (``cached_operands``)."""
+    return cached_operands(block_params(block))
 
 
 def _layernorm(v, g):
@@ -163,22 +197,30 @@ def _kernel():
 def fused_transformer_block(x, block, heads: int, out_dtype=torch.float32):
     """One unmasked self-attention ``ParallelTransformerBlock`` layer, fused.
 
-    ``block`` is the module (its flattened operands are cached on it) or a
-    mapping of its parameters by state_dict name. x [..., S, C] f32 or bf16
-    -> [..., S, C] in ``out_dtype``. CUDA tensors launch the kernel; CPU
-    tensors run ``block_reference``.
+    ``block`` is the module or a mapping of its parameters by state_dict
+    name; the custom op ``tdspa::fused_transformer_block`` (``kernels/ops.py``)
+    takes the parameters themselves and its CUDA implementation caches their
+    flattened operands. x [..., S, C] f32 or bf16 -> [..., S, C] in
+    ``out_dtype``. CUDA tensors launch the kernel (forward-only); CPU tensors
+    run ``block_reference`` (directly where autograd records).
     """
-    ops = _operands(block)
+    from tdspa_torch.kernels import ops
+
+    params = block_params(block)
+    named = dict(zip(PARAMS, params))
     seq, width = x.shape[-2:]
-    hd = ops["wqkv_t"].shape[0] // 3
-    mlp = ops["w1_t"].shape[0]
-    if ops["wqkv_t"].shape[1] != width or hd % heads:
+    cin, heads_p, head_dim = named["self_att.dense_query.kernel"].shape
+    hd = heads_p * head_dim
+    mlp = named["MLP_in.kernel"].shape[1]
+    if cin != width or hd % heads:
         raise ValueError(f"x [..., {seq}, {width}] does not fit a block of {heads} heads and "
-                         f"operands {tuple(ops['wqkv_t'].shape)}")
+                         f"operands {(3 * hd, cin)}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     if x.device.type == "cpu":
-        return block_reference(x, ops, heads, out_dtype)
+        if ops.records(x, *params):
+            return block_reference(x, flatten_block_params(named), heads, out_dtype)
+        return ops.fused_transformer_block(x, params, heads, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     head_dim = hd // heads
@@ -188,17 +230,23 @@ def fused_transformer_block(x, block, heads: int, out_dtype=torch.float32):
                          f"MLP={mlp}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel takes f32 or bf16 x, got {x.dtype}")
-    params = block.parameters() if isinstance(block, torch.nn.Module) else ()
-    if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params)):
+    if ops.records(x, *params):
         raise NotImplementedError("fused_transformer_block is forward-only (inference)")
-    if any(t.device != x.device for t in ops.values()):
+    if any(p.device != x.device for p in params):
         raise ValueError("x and the block's parameters lie on different devices")
     lead = x.shape[:-2]
-    xf = x.reshape(-1, seq, width).contiguous()
-    out, _ = launch_stages(xf, ops, heads, out_dtype)
+    out = ops.fused_transformer_block(x.reshape(-1, seq, width).contiguous(), params, heads,
+                                      out_dtype)
+    return out.reshape(lead + (seq, width))
+
+
+def launch(xf, ops, heads: int, out_dtype):
+    """All seven stages on contiguous CUDA x [N, S, C] and the flattened
+    operands (the op's CUDA implementation); counts one block launch."""
+    out, _ = launch_stages(xf.contiguous(), ops, heads, out_dtype)
     if out.numel():
         fused_transformer_block.launches += 1
-    return out.reshape(lead + (seq, width))
+    return out
 
 
 def launch_stages(xf, ops, heads: int, out_dtype, stages: int = ALL_STAGES, bufs=None):

@@ -67,8 +67,9 @@ def cost_patches_multi(feats, template_vecs, positions, radius: int = 4):
     [N T 2] feature-pixel positions -> [N T M (2R+1)^2] f32.
 
     CUDA tensors launch the Hopper kernel, which takes f32 with D in
-    ``DIMS`` and ``radius <= MAX_RADIUS``; anything else raises. CPU tensors run
-    ``cost_patches_reference``.
+    ``DIMS`` and ``radius <= MAX_RADIUS`` and is forward-only (autograd
+    recording through it raises); anything else raises. CPU tensors run
+    ``cost_patches_reference``, which is differentiable.
     """
     if feats.dim() != 4 or template_vecs.dim() != 3 or positions.dim() != 3:
         raise ValueError(
@@ -97,6 +98,11 @@ def cost_patches_multi(feats, template_vecs, positions, radius: int = 4):
         raise ValueError(f"kernel takes feature width D in {DIMS}, got {dim}")
     if radius > MAX_RADIUS:
         raise ValueError(f"kernel takes radius <= {MAX_RADIUS}, got {radius}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (feats, template_vecs, positions)):
+        raise NotImplementedError(
+            "cost_patches_multi is forward-only on CUDA tensors: its output would carry no "
+            "gradient; differentiate through cost_patches_reference"
+        )
     feats, template_vecs, positions = (
         x.contiguous() for x in (feats, template_vecs, positions)
     )

@@ -12,9 +12,11 @@ take every shape of the 3DSPA forward, so the TPU's VMEM-fit dispatch
 (``quant_matmul_fits``, ``_pick_bm``) has no counterpart.
 
 ``quant_matmul`` launches the kernels for CUDA tensors and runs
-``quant_matmul_reference`` for CPU tensors; it never falls back from one to
-the other. ``quant_matmul.launches`` counts its products (each one
-quantise pass and one GEMM).
+``quant_matmul_reference`` for CPU tensors, through the custom op
+``tdspa::quant_matmul`` (``kernels/ops.py``), whose CUDA implementation
+caches the quantised weights; it never falls back from one to the other.
+``quant_matmul.launches`` counts its products (each one quantise pass and
+one GEMM).
 """
 
 from __future__ import annotations
@@ -221,24 +223,33 @@ def launch(x2d: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tenso
 def quant_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ w [K, N] through dynamic int8 -> [..., N] f32.
 
-    CUDA tensors: the weight's int8 operands come from
-    ``cached_quantized_weight`` and the kernels launch. CPU tensors run
-    ``quant_matmul_reference``.
+    Runs the custom op ``tdspa::quant_matmul`` (``kernels/ops.py``) on the
+    rows of x. CUDA tensors: the op takes the weight's int8 operands from
+    ``cached_quantized_weight`` and launches the kernels (forward-only). CPU
+    tensors run ``quant_matmul_reference`` (directly where autograd records).
     """
+    from tdspa_torch.kernels import ops
+
     if w.dim() != 2 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"expected x [..., K] and w [K, N]; got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")
     if x.device != w.device:
         raise ValueError(f"x and w lie on different devices: {x.device}, {w.device}")
+    k, n = w.shape
     if x.device.type == "cpu":
-        return quant_matmul_reference(x, w)
+        if ops.records(x, w):
+            return quant_matmul_reference(x, w)
+        return ops.quant_matmul(x.reshape(-1, k), w).reshape(x.shape[:-1] + (n,))
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    k, n = w.shape
-    wq, ws = cached_quantized_weight(w)
-    out = launch(x.reshape(-1, k).contiguous(), wq, ws)
-    quant_matmul.launches += 1
-    return out.reshape(x.shape[:-1] + (n,))
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel takes f32/bf16 x, got {x.dtype}")
+    _check_k(k)
+    if n % 8 or n == 0:
+        raise ValueError(f"kernel takes N a multiple of 8; got N={n}")
+    if ops.records(x):
+        raise NotImplementedError("quant_matmul is forward-only (inference)")
+    return ops.quant_matmul(x.reshape(-1, k).contiguous(), w).reshape(x.shape[:-1] + (n,))
 
 
 quant_matmul.launches = 0

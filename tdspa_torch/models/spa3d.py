@@ -98,6 +98,7 @@ class TrackAutoEncoder3D(nn.Module):
         self.decoder_scan_chunk_size = decoder_scan_chunk_size
         self.encoder_scan_chunk_size = encoder_scan_chunk_size
         self.dtype, self.residual_dtype = dtype, residual_dtype
+        self.quantize, self.fused_block = quantize, fused_block
 
         two_f = 2 * num_frequencies
         stack = dict(qkv_size=qkv_size, num_heads=num_heads, dtype=dtype,

@@ -69,9 +69,19 @@ def append_time_feature(latents, query_frame, num_slots: int = 128, stride: int 
 
 
 @functools.lru_cache(maxsize=8)
-def _dither(shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
-    """``jax.random.uniform(PRNGKey(0), shape)``, computed once per shape/device."""
+def _cached_dither(shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
     return torch.from_numpy(jax_prng.uniform(shape)).to(device)
+
+
+def _dither(shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``jax.random.uniform(PRNGKey(0), shape)``, computed once per shape/device.
+
+    A program being traced (``torch.export``) makes its own copy, which
+    becomes a constant of the graph; the cache never holds a traced tensor.
+    """
+    if torch.compiler.is_compiling():
+        return torch.from_numpy(jax_prng.uniform(shape)).to(device)
+    return _cached_dither(shape, device)
 
 
 def quantize_latents(latents: torch.Tensor, levels: float = 128.0) -> torch.Tensor:

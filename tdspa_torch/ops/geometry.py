@@ -53,8 +53,8 @@ def sample_dino_features_for_tracks(dino_features, tracks_2d, video_shape):
         return None
     h_patches, w_patches = dino_features.shape[1], dino_features.shape[2]
     _, height, width = video_shape[:3]
-    scale = torch.tensor([w_patches / width, h_patches / height], dtype=torch.float32,
-                         device=tracks_2d.device)
+    scale = torch.tensor([w_patches / width, h_patches / height], dtype=torch.float32).to(
+        tracks_2d.device)
     return bilinear_sample(dino_features, tracks_2d * scale).float()
 
 

@@ -43,11 +43,12 @@ class TrainState:
 
 
 class Optimizer:
-    """Global-norm clip + AdamW on ``schedule`` (optax's update, in place)."""
+    """Global-norm clip + AdamW on ``schedule`` (optax's update, in place);
+    ``clip_norm=None`` is ``optax.adamw`` alone (the matcher's training)."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8  # optax.adamw's defaults, which JAX's trainer uses
 
-    def __init__(self, schedule, weight_decay: float = 0.01, clip_norm: float = 1.0):
+    def __init__(self, schedule, weight_decay: float = 0.01, clip_norm: float | None = 1.0):
         self.schedule = schedule
         self.weight_decay, self.clip_norm = weight_decay, clip_norm
 
@@ -67,12 +68,13 @@ class Optimizer:
         mu = [state.mu[k] for k in names]
         nu = [state.nu[k] for k in names]
         g = list(grads)
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
-        clipped = torch._foreach_div(g, norm)
-        torch._foreach_mul_(clipped, self.clip_norm)
-        keep = norm < self.clip_norm
-        g = [torch.where(keep, a, b) for a, b in zip(g, clipped)]
-        del clipped
+        if self.clip_norm is not None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            clipped = torch._foreach_div(g, norm)
+            torch._foreach_mul_(clipped, self.clip_norm)
+            keep = norm < self.clip_norm
+            g = [torch.where(keep, a, b) for a, b in zip(g, clipped)]
+            del clipped
         # mu = (1 - b1) g + b1 mu; nu = (1 - b2) g^2 + b2 nu.
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, torch._foreach_mul(g, 1 - self.b1))

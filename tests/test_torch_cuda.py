@@ -107,6 +107,116 @@ def test_kernel_refuses_inputs_that_require_grad(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["bilinear", "cost_patches"])
+def test_forward_only_wrappers_refuse_autograd(cuda_device, wrapper):
+    """A kernel's output carries no gradient: the bilinear and cost-patch
+    wrappers raise where autograd would record through them on CUDA tensors,
+    and launch under no_grad or inference mode."""
+    from tdspa_torch.kernels.bilinear import bilinear_sample
+    from tdspa_torch.kernels.matcher import cost_patches_multi
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    feats = torch.randn((3, 10, 12, 16), generator=gen, device=cuda_device)
+    if wrapper == "bilinear":
+        args = [feats, torch.rand((5, 3, 2), generator=gen, device=cuda_device) * 9]
+        fn = bilinear_sample
+    else:
+        args = [feats, torch.randn((5, 2, 16), generator=gen, device=cuda_device),
+                torch.rand((5, 3, 2), generator=gen, device=cuda_device) * 9]
+        fn = cost_patches_multi
+    for i in range(len(args)):
+        recorded = [x.clone().requires_grad_(j == i) for j, x in enumerate(args)]
+        with pytest.raises(NotImplementedError, match="forward-only"):
+            fn(*recorded)
+        before = fn.launches
+        with torch.no_grad():
+            fn(*recorded)
+        with torch.inference_mode():
+            fn(*args)
+        assert fn.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_custom_ops_launch_the_kernels(cuda_device):
+    """The four ``tdspa::`` ops on CUDA tensors launch their kernels (each
+    counter moves by one) and give the plain versions' results: bit for bit
+    for bilinear and int8, 2e-2 for attention and the block."""
+    from tdspa_torch.core.attention import ParallelTransformerBlock, reset_parameters
+    from tdspa_torch.kernels import block as kb
+    from tdspa_torch.kernels import ops
+    from tdspa_torch.kernels import quant_matmul as qmm
+    from tdspa_torch.kernels.bilinear import bilinear_sample, bilinear_sample_reference
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v, mask = _inputs(cuda_device, 2, 9, 9, 2, 64, True)
+    grid = torch.randn((4, 9, 7, 24), generator=gen, device=cuda_device)
+    coords = torch.rand((30, 4, 2), generator=gen, device=cuda_device) * 10 - 1
+    x = torch.randn((70, 48), generator=gen, device=cuda_device)
+    w = torch.randn((48, 40), generator=gen, device=cuda_device) * 0.05
+    block = ParallelTransformerBlock(64, 96, 2, 64, fused_block=True, device=cuda_device)
+    reset_parameters(block, gen)
+    xb = torch.randn((3, 9, 64), generator=gen, device=cuda_device)
+    cases = [
+        (fused_masked_attention, lambda: torch.ops.tdspa.fused_masked_attention(
+            q, k, v, mask, torch.float32), attention_reference(q, k, v, mask), 2e-2),
+        (bilinear_sample, lambda: torch.ops.tdspa.bilinear_sample(grid, coords, torch.float32),
+         bilinear_sample_reference(grid, coords), 0.0),
+        (qmm.quant_matmul, lambda: ops.quant_matmul(x, w), qmm.quant_matmul_reference(x, w), 0.0),
+        (kb.fused_transformer_block, lambda: ops.fused_transformer_block(
+            xb, kb.block_params(block), 2, torch.float32),
+         kb.block_reference(xb, kb._operands(block), 2), 2e-2),
+    ]
+    with torch.inference_mode():
+        for wrapper, call, want, atol in cases:
+            before = wrapper.launches
+            got = call()
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1, wrapper.__name__
+            torch.testing.assert_close(got, want, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob", ["default", "quantize", "fused_block"])
+def test_exported_tail_runs_the_kernels(cuda_device, knob, tmp_path):
+    """A tiny CUDA tail exported on fake tensors, saved and loaded, called on
+    the card: the kernels' launches per call (5 attention and 3 bilinear;
+    quantised 28 int8; fused block 2 block and 3 attention), and the eager
+    tail's outputs exactly (the same kernels on the same inputs)."""
+    from tdspa_torch.infer import export
+    from tdspa_torch.infer.pipeline import fused_tail
+    from tdspa_torch.kernels import quant_matmul as qmm
+    from tdspa_torch.kernels.bilinear import bilinear_sample
+    from tdspa_torch.kernels.block import fused_transformer_block
+
+    t, h, w, n, s, nq = 12, 32, 32, 16, 8, 4
+    model = tiny_model_3d(t, device=cuda_device, dtype=torch.bfloat16, fused_attention=True,
+                          qkv_size=64, **({} if knob == "default" else {knob: True}))
+    shapes = dict(num_tracks=n, num_frames=t, video_hw=(h, w), num_support=s, num_queries=nq,
+                  use_dino=True, use_depth=True)
+    path = str(tmp_path / "tail.pt2")
+    export.save_exported(export.export_serving_tail(model, dino_grid_hw=(3, 3), **shapes), path)
+    loaded = export.load_exported(path)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    inputs = (torch.rand((n, t, 2), generator=gen, device=cuda_device) * (w - 1),
+              (torch.rand((n, t, 1), generator=gen, device=cuda_device) > 0.2).float(),
+              torch.randn((t, 3, 3, 768), generator=gen, device=cuda_device),
+              torch.rand((t, h, w, 1), generator=gen, device=cuda_device) + 0.5)
+    perm = torch.randperm(n, device=cuda_device)
+    ts = torch.randint(0, t, (nq,), device=cuda_device)
+    params = export.serving_params(model)
+    counters = (fused_masked_attention, bilinear_sample, qmm.quant_matmul, fused_transformer_block)
+    with torch.inference_mode():
+        before = [c.launches for c in counters]
+        got = loaded.call(params, perm, ts, *inputs)
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        want, batch, tracks_3d = fused_tail(model, *inputs, perm, ts, s, nq, (h, w))
+    assert launched == {"default": [5, 3, 0, 0], "quantize": [5, 3, 28, 0],
+                        "fused_block": [3, 3, 0, 2]}[knob]
+    assert torch.equal(got["tracks"], want.tracks) and torch.equal(got["tracks_3d"], tracks_3d)
+    assert torch.equal(got["query_points"], batch["query_points"])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(64, 151, 151, 8, 96, True), (1, 128, 2048, 8, 96, False),
                                    (16, 150, 150, 8, 64, True)])
 def test_fused_attention_fn_backward_matches_plain_version(cuda_device, shape):

@@ -58,7 +58,8 @@ def test_port_imports_without_jax_tdspa_or_triton():
                  "tdspa_torch.train.losses", "tdspa_torch.train.schedule",
                  "tdspa_torch.train.state", "tdspa_torch.train.step",
                  "tdspa_torch.train.metrics", "tdspa_torch.train.loop",
-                 "tdspa_torch.cli.train"):
+                 "tdspa_torch.cli.train", "tdspa_torch.kernels.ops", "tdspa_torch.infer.export",
+                 "tdspa_torch.cli.export"):
         assert name in report["modules"]
 
 

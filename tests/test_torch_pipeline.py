@@ -278,9 +278,16 @@ def test_check_params_structure_reports_like_jax():
 
 def test_pipeline_refuses_what_later_slices_bring(tmp_path):
     model = tiny_model_3d(T, device="cpu")
-    for kwargs in ({"mesh": object()}, {"tail_artifact": "tail.shlo"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            InferencePipeline(model=model, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        InferencePipeline(model=model, device="cpu", mesh=object())
+    # Exported tails run (tests/test_torch_export.py); the artifact is read
+    # at the first run, so a missing one is refused there.
+    pipe = InferencePipeline(model=model, device="cpu", tracking_grid_size=4,
+                             tail_artifact=str(tmp_path / "tail.pt2"), use_dino=False,
+                             depth_provider=ConstantDepthProvider())
+    assert pipe.tail_artifact == str(tmp_path / "tail.pt2")
+    with pytest.raises(FileNotFoundError):
+        pipe.run_on_frames(_video())
     # DINO and depth are the port's own now (test below), and so is decoding
     # a video file (tests/test_torch_video.py): a missing file is refused.
     pipe = InferencePipeline(model=model, device="cpu", tracking_grid_size=4)

@@ -126,7 +126,8 @@ def test_infer_flags_become_pipeline_arguments(tmp_path):
         dino_model="facebook/dinov2-base", vda_encoder="vitb", track_provider=None,
         depth_provider=None, seed=0, projection_policy="error", quantize=False,
         residual_dtype=None, depth_output_scale=1.0, depth_input_size=518,
-        gelu_approximate=False, tracking_input_scale=1.0, fused_block=False, device="cpu",
+        gelu_approximate=False, tracking_input_scale=1.0, fused_block=False, tail_artifact=None,
+        device="cpu",
     )
     assert kw == want_defaults
     pipeline_params = inspect.signature(pipeline_lib.InferencePipeline).parameters
@@ -155,11 +156,14 @@ def test_infer_flags_become_pipeline_arguments(tmp_path):
 
     for flag, missing in (("--track_provider=cotracker", "cotracker"),
                           ("--vda_torch_adapter", "Video-Depth-Anything"),
-                          ("--tail_artifact=tail.pt2", "export slice"),
                           ("--debug_nans", "debug.py")):
         with pytest.raises(NotImplementedError, match=missing):
             infer_cli.check_supported(_args(flag))
     infer_cli.check_supported(_args())
+    # --tail_artifact runs (test_infer_cli_runs_an_exported_tail below).
+    infer_cli.check_supported(_args("--tail_artifact=tail.pt2"))
+    assert infer_cli.pipeline_kwargs(_args("--device=cpu", "--tail_artifact=tail.pt2")
+                                     )["tail_artifact"] == "tail.pt2"
     with pytest.raises(SystemExit):
         _args("--projection_policy=other")
     with pytest.raises(ValueError, match="checkpoint_path"):
@@ -195,3 +199,39 @@ def test_infer_cli_writes_the_reference_outputs(clip, tmp_path, monkeypatch):
     info = (out_dir / "video_info.txt").read_text().splitlines()
     assert info == [f"FPS: {results['fps']}", f"Frames: {T}", "Query points: 4"]
     assert list((tmp_path / "trace").glob("trace_*.json"))
+
+
+def test_infer_cli_runs_an_exported_tail(clip, tmp_path, monkeypatch):
+    """``--tail_artifact`` on the CPU: the tiny model's tail exported for the
+    CLI's configuration (the tracker's 16 tracks, 8 support, 4 queries, no
+    DINO) gives the traced tail's predictions exactly; an artifact exported
+    for another query count is refused."""
+    from tdspa_torch.infer.export import export_serving_tail, save_exported, tail_config
+
+    path, _ = clip
+    model = tiny_model_3d(T, device="cpu", use_dino=False, use_depth=False, seed=5)
+    ckpt = tmp_path / "tiny.npz"
+    save_checkpoint_npz(str(ckpt), params_to_flax(model.state_dict()))
+    monkeypatch.setattr(pipeline_lib, "InferencePipeline", functools.partial(
+        pipeline_lib.InferencePipeline,
+        model=tiny_model_3d(T, device="cpu", use_dino=False, use_depth=False)))
+    flags = [f"--video_path={path}", f"--checkpoint_path={ckpt}", f"--num_output_frames={T}",
+             "--nouse_dino", "--nouse_depth", "--num_query_points=4", "--num_support_tracks=8",
+             f"--tracking_grid_size={GRID}", "--device=cpu"]
+    for queries in (4, 3):
+        shapes = dict(num_tracks=GRID ** 2, num_frames=T, video_hw=(H, W), num_support=8,
+                      num_queries=queries, use_dino=False, use_depth=False)
+        artifact = str(tmp_path / f"tail_{queries}.pt2")
+        save_exported(export_serving_tail(model, device="cpu", **shapes), artifact,
+                      tail_config(model, device="cpu", **shapes))
+    want = infer_cli.main(flags + [f"--output_dir={tmp_path}/eager"])
+    got = infer_cli.main(flags + [f"--output_dir={tmp_path}/artifact",
+                                  f"--tail_artifact={tmp_path}/tail_4.pt2"])
+    for name in ("tracks", "visible_logits"):
+        torch.testing.assert_close(getattr(got["predictions"], name),
+                                   getattr(want["predictions"], name), rtol=0, atol=0)
+    with np.load(tmp_path / "artifact" / "predictions.npz") as saved:
+        np.testing.assert_array_equal(saved["tracks_3d"], want["predictions"].tracks[0].numpy())
+    with pytest.raises(ValueError, match="num_queries"):
+        infer_cli.main(flags + [f"--output_dir={tmp_path}/x",
+                                f"--tail_artifact={tmp_path}/tail_3.pt2"])
