@@ -22,7 +22,12 @@ and the script exits non-zero:
    ``scaled_dot_product_attention``'s (timed only, as a yardstick), the
    bound (the larger of bytes over 3.35 TB/s and flops over 989 TFLOP/s)
    and the kernel's work plan; then one forward's totals with f32 and with
-   bf16 output beside SDPA's.
+   bf16 output beside SDPA's. Each shape first prints ``{"phase": "kernel",
+   "shape": name}`` on its own, and each comparison ends in a synchronise, so
+   a fault of the kernel is reported at its shape and not inside the next
+   shape's SDPA timing; phases vit_attention_kernel, quant_matmul_kernel,
+   bilinear_kernel and attention_backward do the same before their library
+   timings.
    vit_attention_kernel: the same for the maskless ViT kernel
    (``csrc/vit_attention.cu``) at the DINO and depth backbones' frames,
    (8,1297,12,64) and (8,1370,12,64), and a ragged (2,77|1000,12,64).
@@ -154,6 +159,29 @@ and the script exits non-zero:
    10's predictions; the infer CLI with ``--tail_artifact``.
 26. export_forward_2d (after phase 19): ``export_model_forward`` of the
    default 2D TRAJAN against its eager forward.
+27. visualize (after phase 16): the visualize CLI
+   (``tdspa_torch.cli.visualize``) on phase 16's visualization npz: the
+   mp4's frame count and size; the tracks projected on the card against the
+   CPU's within 1e-4 px.
+28. debug_nans (after phase 23): the full-width default tail (phase 4's
+   model, split and inputs) under ``debug_nans``: clean, it raises nothing
+   and equals the unchecked tail; with a NaN in one DINO feature it raises
+   ``FloatingPointError`` naming the operator (the bilinear kernel's
+   ``tdspa::bilinear_sample``); unchecked, it equals phase 4's outputs; the
+   time of each.
+29. mesh (after phase 22): a one-rank NCCL process group (a ``FileStore`` in
+   a temporary directory; the card's machine has one GPU, so multi-GPU speed
+   is not measured): one sharded 3DSPA train step at phase 21's batch
+   against the single-device step; ``make_mesh_tail`` in the default,
+   quantised and fused-block configurations against ``fused_tail``, with
+   their launches per call; ``export_mesh_tail``, saved, loaded and called
+   through ``call_exported_mesh``, against the live mesh tail. The group is
+   destroyed at the end, also on failure.
+
+``python3 chip_smoke.py --matcher_recipe OUT.npz`` runs, in place of the
+phases, the one-off measurement of the matcher's whole recipe (4000 steps,
+``python -m tdspa_torch.features.matcher OUT.npz``) scored on the noisy
+scene beside the shipped matcher.
 
 With ``--profile``, one more run of each full-width pipeline's stage (and
 of each feature extractor, and one train step of each model) under
@@ -548,6 +576,13 @@ EXPORT_CONFIGS = {
 # parameters and inputs: the same ops and kernels in the same order, so
 # bit-equal is expected; held to 1e-5 of each output's range.
 EXPORT_RTOL = 1e-5
+# The sharded train step on a one-rank group against the single-device step:
+# the same shapes and kernels (bit-equal expected), held to JAX's sharded-step
+# tolerances (tests/dist/test_sharding.py: loss rtol 1e-5, parameters 1e-5).
+MESH_STEP_TOL = dict(loss_rtol=1e-5, param_atol=1e-5)
+# The visualizer's projection on the card against the CPU's: the same f32
+# elementwise ops in one order (bit-equal expected); 1e-4 px.
+VIZ_PROJECTION_ATOL = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -736,6 +771,10 @@ def phase_kernel() -> dict:
             add_mask.masked_fill_(~mask, torch.finfo(torch.bfloat16).min)
             add_mask = add_mask[:, None, None, :]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        # Which shape a fault belongs to: the line comes before the library's
+        # timing, and each kernel comparison ends in a synchronise, so a fault
+        # of csrc/attention.cu is reported at its own shape.
+        emit("kernel", shape=name)
         library_ms = cuda_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=add_mask),
             iters=10,
@@ -746,6 +785,7 @@ def phase_kernel() -> dict:
                                       grid=plan["grid"], key_chunks=plan["chunks"],
                                       cuda_kernels_per_call=plan["cuda_kernels"]),
                                  q, k, v, mask, library_ms)
+        torch.cuda.synchronize()
         if per_forward:
             # One forward's attention work (the pipeline's residual stream is f32;
             # the bf16-output total is the like-for-like comparison with SDPA).
@@ -755,6 +795,7 @@ def phase_kernel() -> dict:
             # Item 0 attends to nothing: the kernel returns the mean of its values.
             mean_v = v[0].float().mean(dim=0)  # [H, D]
             got = fused_masked_attention(q, k, v, mask)[0]
+            torch.cuda.synchronize()
             dev = (got - mean_v[None]).abs().max().item()
             emit("kernel_fully_masked_mean", max_abs_dev=dev, atol=KERNEL_ATOL)
             if dev > KERNEL_ATOL:
@@ -779,11 +820,13 @@ def phase_vit_kernel() -> dict:
     for name, batch, seq, kv_len, heads, per_video in VIT_SHAPES:
         q, k, v, _ = attention_inputs(gen, batch, seq, kv_len, heads, VIT_HEAD, False)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        emit("vit_attention_kernel", shape=name)  # as in phase_kernel
         library_ms = cuda_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), iters=10)
         rows = compare_attention(
             "vit_attention_kernel", lambda q, k, v, mask, out_dtype: vit_attention(q, k, v, out_dtype),
             dict(shape=name, per_video=per_video), q, k, v, None, library_ms)
+        torch.cuda.synchronize()
         if per_video:
             add_per_run(totals, rows, per_video)
         del q, k, v, qt, kt, vt
@@ -1395,7 +1438,7 @@ def phase_tracking_tiers() -> dict:
     return rows
 
 
-def phase_realism(full) -> dict:
+def phase_realism(full, viz_dir: str) -> dict:
     """``score_tracks`` on the batch the full pipeline's tail gave its model
     (rebuilt from the pipeline's tracks, features and split), with the fused
     kernel and with plain attention; ``save_visualization_npz``'s contract."""
@@ -1434,14 +1477,13 @@ def phase_realism(full) -> dict:
              "coords_score_outside_limit": int((score_gap > score_limit).sum())}
     limits = {"realism_score": REALISM_SCORE_RTOL * abs(want["realism_score"]),
               "mean_error": error_bound, "point_error": error_bound, "coords_score_outside_limit": 0}
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "viz.npz")
-        coords = preds.tracks[0].transpose(0, 1)  # [T Q 3]
-        save_visualization_npz(path, coords, got["coords_score"], full["video"],
-                               visibs=batch["query_tracks_visible"][0, ..., 0].transpose(0, 1))
-        with np.load(path) as saved:
-            saved_shapes = {k: list(saved[k].shape) for k in saved.files}
-            saved_dtypes = sorted({str(saved[k].dtype) for k in saved.files})
+    path = os.path.join(viz_dir, "viz.npz")  # phase visualize's input
+    coords = preds.tracks[0].transpose(0, 1)  # [T Q 3]
+    save_visualization_npz(path, coords, got["coords_score"], full["video"],
+                           visibs=batch["query_tracks_visible"][0, ..., 0].transpose(0, 1))
+    with np.load(path) as saved:
+        saved_shapes = {k: list(saved[k].shape) for k in saved.files}
+        saved_dtypes = sorted({str(saved[k].dtype) for k in saved.files})
     expected_saved = {"coords": [NUM_FRAMES, num_queries, 3],
                       "coords_score": [NUM_FRAMES, num_queries],
                       "video": [NUM_FRAMES, 3, HEIGHT, WIDTH], "intrinsics": [3, 3],
@@ -1466,7 +1508,232 @@ def phase_realism(full) -> dict:
         raise AssertionError(f"visualization file: {saved_shapes} {saved_dtypes}")
     del plain_model, plain_preds, batch, preds
     torch.cuda.empty_cache()
-    return {"launches": launches, "ms": ms, "plain_ms": plain_ms}
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms, "viz_path": path}
+
+
+def phase_visualize(viz_path: str) -> dict:
+    """The port's visualize CLI on phase realism's visualization npz: the
+    mp4's frame count and size; the card's projection of the tracks against
+    the CPU's (VIZ_PROJECTION_ATOL)."""
+    from tdspa_torch.cli import visualize as visualize_cli
+    from tdspa_torch.ops.geometry import project_all_tracks
+    from tdspa_torch.viz.paint import load_visualization_data
+    import cv2
+
+    out, cli_ms = _timed_call(visualize_cli.main, [f"--npz_path={viz_path}", "--device=cuda"])
+    cap = cv2.VideoCapture(str(out))
+    frames = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    size = [int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)), int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))]
+    cap.release()
+    data = load_visualization_data(viz_path)
+    _, _, height, width = data["video"].shape
+    projected = {}
+    for device in ("cuda", "cpu"):
+        coords = torch.as_tensor(data["coords"], device=device)
+        projected[device], ms = _timed_call(lambda: project_all_tracks(
+            coords, data["intrinsics"], data["extrinsics"], original_height=height,
+            original_width=width))
+        projected[f"{device}_ms"] = ms
+    err = (projected["cuda"].cpu() - projected["cpu"]).abs().max().item()
+    row = dict(cli_ms=cli_ms, mp4_frames=frames, mp4_size=size, points=data["coords"].shape[1],
+               projection_max_abs_px=err, atol_px=VIZ_PROJECTION_ATOL,
+               projection_cuda_ms=projected["cuda_ms"], projection_cpu_ms=projected["cpu_ms"],
+               finite=bool(torch.isfinite(projected["cuda"]).all()))
+    emit("visualize", **row)
+    if frames != NUM_FRAMES or size != [WIDTH, HEIGHT] or not err <= VIZ_PROJECTION_ATOL \
+            or not row["finite"]:
+        raise AssertionError(f"visualize: {row}")
+    return row
+
+
+def phase_debug_nans(path) -> dict:
+    """The full-width default tail (phase pipeline's model, split and inputs)
+    under the NaN check: clean, it raises nothing; with a NaN in one DINO
+    feature it raises FloatingPointError naming the operator; with the check
+    off it equals phase pipeline's outputs."""
+    from tdspa_torch.utils.profiling import debug_nans
+
+    providers, pipe = path["providers"], path["pipeline"]
+    perm, ts = pipe.split_indices(GRID * GRID, 512, NUM_FRAMES)
+    inputs = [providers.tracks, providers.visible, providers.dino, providers.depth]
+    split = (perm, ts, 2048, 512, (HEIGHT, WIDTH))
+    rows = {}
+    with torch.inference_mode():
+        (off, _, _), rows["off_ms"] = _timed_call(fused_tail, pipe.model, *inputs, *split)
+        with debug_nans():
+            (on, _, _), rows["on_clean_ms"] = _timed_call(fused_tail, pipe.model, *inputs,
+                                                         *split)
+        # One DINO feature: channel 0 of the patch cell under track 0's first
+        # position.
+        x, y = (providers.tracks[0, 0] * torch.tensor(
+            [DINO_GRID[1] / WIDTH, DINO_GRID[0] / HEIGHT], device="cuda")).floor().long().tolist()
+        inputs[2] = providers.dino.clone()
+        inputs[2][0, y, x, 0] = float("nan")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with debug_nans():
+                fused_tail(pipe.model, *inputs, *split)
+            raised = "nothing raised"
+        except FloatingPointError as err:
+            raised = str(err)
+        rows["on_nan_ms_to_raise"] = (time.perf_counter() - t0) * 1e3
+    want = path["predictions"]
+    rows["off_vs_pipeline"] = {k: _rel_err(getattr(off, k), getattr(want, k))
+                               for k in ("tracks", "visible_logits")}
+    rows["on_vs_off_max_abs"] = max((getattr(on, k) - getattr(off, k)).abs().max().item()
+                                    for k in ("tracks", "visible_logits"))
+    rows["raised"] = raised
+    emit("debug_nans", rtol=EXPORT_RTOL, **rows)
+    if "tdspa.bilinear_sample" not in raised or rows["on_vs_off_max_abs"] != 0.0 \
+            or any(v["rel_err"] > EXPORT_RTOL for v in rows["off_vs_pipeline"].values()):
+        raise AssertionError(f"debug_nans: {rows}")
+    return rows
+
+
+def phase_mesh(batch_3d) -> dict:
+    """The multi-GPU paths on a one-rank NCCL group (a FileStore in a
+    temporary directory): one sharded 3DSPA train step at phase train_3d's
+    batch against the single-device step; make_mesh_tail in the three
+    serving configurations against fused_tail with their launches per call;
+    the mesh export round trip against the live mesh tail. The group is
+    destroyed at the end, also on failure."""
+    import torch.distributed as dist
+
+    from tdspa_torch.parallel.mesh import make_mesh, replicate
+    from tdspa_torch.parallel.shardings import shard_batch
+    from tdspa_torch.infer.pipeline import make_mesh_tail
+
+    emit("mesh", note="one GPU: a one-rank group; multi-GPU speed is not measured")
+    counters = {"attention": fused_masked_attention, "bilinear": bilinear_kernel,
+                "quant_matmul": qmm.quant_matmul, "block": fused_transformer_block}
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            # The train step: single-device, then sharded, from one start.
+            overrides = dict(dtype=torch.bfloat16, fused_attention=True,
+                             encoder_scan_chunk_size=TRAIN_CHUNK,
+                             decoder_scan_chunk_size=TRAIN_CHUNK)
+            state, model, optimizer, schedule = create_model_state(
+                SEED, model_type="3dspa", learning_rate=TRAIN_LR, warmup_steps=1,
+                total_steps=100 * TRAIN_STEPS, num_output_frames=NUM_FRAMES, device="cuda",
+                **overrides)
+            start = _clone(state.params)
+            (single, single_metrics), single_ms = _timed_call(
+                make_train_step(model, optimizer, schedule), state, batch_3d)
+            single_params = _clone(single.params)
+            state, model, optimizer, schedule = create_model_state(
+                SEED, model_type="3dspa", learning_rate=TRAIN_LR, warmup_steps=1,
+                total_steps=100 * TRAIN_STEPS, num_output_frames=NUM_FRAMES, device="cuda",
+                **overrides)
+            replicate(list(state.params.values()), mesh)
+            same_start = all(torch.equal(state.params[k], v) for k, v in start.items())
+            local = shard_batch(mesh, batch_3d)
+            fused_masked_attention.launches = 0
+            (sharded, sharded_metrics), sharded_ms = _timed_call(
+                make_train_step(model, optimizer, schedule, mesh=mesh), state, local)
+            step_launches = fused_masked_attention.launches
+            rows["train_step"] = dict(
+                single_ms=single_ms, sharded_ms=sharded_ms, same_start=same_start,
+                launches=step_launches,
+                single_loss=single_metrics["train/loss"].item(),
+                sharded_loss=sharded_metrics["train/loss"].item(),
+                param_max_abs_diff=max((sharded.params[k] - v).abs().max().item()
+                                       for k, v in single_params.items()))
+            del state, model, optimizer, single, sharded, single_params, start, local
+            torch.cuda.empty_cache()
+
+            # The serving tails on phase pipeline's seeded inputs and model.
+            providers = SeededProviders(SEED)
+            pipe = InferencePipeline(num_output_frames=NUM_FRAMES, seed=SEED, device="cuda")
+            base = pipe.model
+            perm, ts = pipe.split_indices(GRID * GRID, 512, NUM_FRAMES)
+            inputs = (providers.tracks, providers.visible, providers.dino, providers.depth)
+            split = (2048, 512, (HEIGHT, WIDTH))
+            live = None
+            for knob, expected in EXPORT_CONFIGS.items():
+                model = base
+                if knob != "default":
+                    model = TrackAutoEncoder3D(num_output_frames=NUM_FRAMES,
+                                               dtype=torch.bfloat16, fused_attention=True,
+                                               device="cuda", **{knob: True})
+                    model.load_state_dict(base.state_dict())
+                tail = make_mesh_tail(mesh, model, *split)
+                row = {}
+                with torch.inference_mode():
+                    for name, fn in (("fused_tail", lambda: fused_tail(model, *inputs, perm, ts,
+                                                                       *split)),
+                                     ("mesh_tail", lambda: tail(*inputs, perm, ts))):
+                        fn()  # warm
+                        for c in counters.values():
+                            c.launches = 0
+                        out, ms = _timed_call(fn)
+                        row[f"{name}_ms"] = ms
+                        row[f"{name}_launches"] = {k: c.launches for k, c in counters.items()}
+                        row[name] = out
+                want, got = row.pop("fused_tail"), row.pop("mesh_tail")
+                row["vs_fused_tail"] = {
+                    **{k: _rel_err(getattr(got[0], k), getattr(want[0], k))
+                       for k in ("tracks", "visible_logits")},
+                    "tracks_3d": _rel_err(got[2], want[2])}
+                row["bit_equal"] = all(torch.equal(getattr(got[0], k), getattr(want[0], k))
+                                       for k in ("tracks", "visible_logits")) \
+                    and torch.equal(got[2], want[2])
+                row["expected_launches"] = expected
+                rows[f"tail_{knob}"] = row
+                if knob == "default":
+                    live = {"tracks": got[0].tracks, "visible_logits": got[0].visible_logits,
+                            "tracks_3d": got[2]}
+                del model, tail, want, got
+                torch.cuda.empty_cache()
+
+            # The mesh export round trip (default configuration).
+            t0 = time.perf_counter()
+            program = export_lib.export_mesh_tail(mesh, base, *split, num_tracks=GRID * GRID,
+                                                  num_frames=NUM_FRAMES)
+            export_s = time.perf_counter() - t0
+            file = os.path.join(tmp, "mesh_tail.pt2")
+            manifest = export_lib.save_exported(program, file)
+            loaded = export_lib.load_exported_mesh(file)
+            params = export_lib.serving_params(base)
+            with torch.inference_mode():
+                export_lib.call_exported_mesh(loaded, mesh, params, perm, ts, *inputs)  # warm
+                for c in counters.values():
+                    c.launches = 0
+                out, call_ms = _timed_call(export_lib.call_exported_mesh, loaded, mesh, params,
+                                           perm, ts, *inputs)
+            rows["export"] = dict(
+                export_s=export_s, graph_nodes=len(program.graph.nodes),
+                artifact_bytes=manifest["bytes"], nr_devices=manifest["nr_devices"],
+                call_ms=call_ms, launches={k: c.launches for k, c in counters.items()},
+                bit_equal={k: torch.equal(out[k], v) for k, v in live.items()})
+            del program, loaded, out, live, base, pipe, providers
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    emit("mesh", **rows)
+    problems = []
+    step = rows["train_step"]
+    if not step["same_start"] or not math.isclose(step["sharded_loss"], step["single_loss"],
+                                                  rel_tol=MESH_STEP_TOL["loss_rtol"]) \
+            or not step["param_max_abs_diff"] <= MESH_STEP_TOL["param_atol"]:
+        problems.append(f"train step {step}")
+    for knob, expected in EXPORT_CONFIGS.items():
+        row = rows[f"tail_{knob}"]
+        if row["mesh_tail_launches"] != expected or row["fused_tail_launches"] != expected \
+                or any(v["rel_err"] > EXPORT_RTOL for v in row["vs_fused_tail"].values()):
+            problems.append(f"tail {knob}: {row}")
+    if rows["export"]["launches"] != EXPORT_CONFIGS["default"] \
+            or not all(rows["export"]["bit_equal"].values()) or rows["export"]["nr_devices"] != 1:
+        problems.append(f"export {rows['export']}")
+    if problems:
+        raise AssertionError(f"mesh: {problems}")
+    return {"train_step_launches": step["launches"],
+            **{f"tail_{k}": rows[f"tail_{k}"]["mesh_tail_launches"] for k in EXPORT_CONFIGS},
+            "export": rows["export"]["launches"]}
 
 
 def _pipeline_counters() -> dict:
@@ -1724,6 +1991,8 @@ def phase_quant_kernel() -> dict:
         del xq_k, sx_k
         wrapper_ms = cuda_ms(lambda: qmm.quant_matmul(x, w), iters=10)  # weights cached
         plain_ms = cuda_ms(lambda: qmm.quant_matmul_reference(x, w), iters=3)
+        torch.cuda.synchronize()  # a fault of the kernels is reported before the library's timing
+        emit("quant_matmul_kernel", shape=name, library="torch._int_mm")
         xq, _ = qmm.dynamic_int8(x.float(), -1)
         int_mm_ms = cuda_ms(lambda: torch._int_mm(xq, wq.t()), iters=10)
         wb, xb = w.to(torch.bfloat16), x.to(torch.bfloat16)
@@ -1851,6 +2120,8 @@ def phase_bilinear_kernel(providers) -> dict:
         del got, want
         ms = cuda_ms(lambda: bilinear_kernel(grid, coords, out_dtype), iters=10)
         plain_ms = cuda_ms(lambda: bilinear_sample_reference(grid, coords, out_dtype), iters=3)
+        torch.cuda.synchronize()  # a fault of the kernel is reported before the library's timing
+        emit("bilinear_kernel", case=name, library="grid_sample")
         frames, height, width, channels = grid.shape
         # The yardstick: grid_sample with border padding and align_corners
         # computes the reference's corner rule (tests/test_torch_bilinear.py);
@@ -2209,6 +2480,8 @@ def phase_attention_backward() -> dict:
 
         forward_ms = event_ms(forward, 10)
         total_ms = event_ms(forward_backward, 5)
+        torch.cuda.synchronize()  # a fault of the kernel is reported before the library's timing
+        emit("attention_backward", shape=name, library="scaled_dot_product_attention")
         library_ms = event_ms(sdpa_forward_backward, 5)
         row = dict(shape=name, B=batch, S=seq, K=kv_len, H=heads, D=depth, masked=bool(masked),
                    launches=launched, max_abs_err=errs, grad_max_abs=scales,
@@ -2438,7 +2711,8 @@ def phase_train(model_type: str, profile: bool = False) -> dict:
     if problems:
         raise AssertionError(f"train_{model_type}: {problems}")
     return {"launches": launches, "launches_per_step": expected["step"],
-            "step_median_ms": row["step_median_ms"], "peak_mem_gb": step_peak}
+            "step_median_ms": row["step_median_ms"], "peak_mem_gb": step_peak,
+            "batch": batch}
 
 
 def phase_train_cli() -> dict:
@@ -2653,6 +2927,36 @@ def phase_matcher_train(noisy) -> dict:
     return {"training_launches": train_launches, "refine_launches":
             {k: v["launches"]["matcher"] for k, v in refine.items()},
             "step_ms_median": warm_ms}
+
+
+def matcher_recipe(out: str) -> None:
+    """One-off measurement, not a phase of the default run: the shipped
+    matcher's whole recipe (``python -m tdspa_torch.features.matcher out``:
+    4000 steps, bank 3, 48 scenes) on the card, then the trained matcher and
+    the shipped one run by the pipeline's tracker on the Tracked
+    configuration's noisy scene through ``csrc/matcher.cu``, scored against
+    its ground truth and held to each other at QUALITY_SLACK."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tdspa_torch.features.matcher", out],
+                          capture_output=True, text=True, timeout=1800)
+    recipe_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the matcher recipe failed: {proc.stderr[-3000:]}")
+    video, gt_tracks, gt_visible = make_tracking_scene(**SCENE, **SCENES["noisy"])
+    scene = {"gt_tracks": gt_tracks, "gt_visible": gt_visible}
+    video = torch.from_numpy(video).cuda()
+    rows = {}
+    for name, matcher in (("recipe", out), ("shipped", "default")):
+        tracker = PyramidalLKTracker(**dict(TRACKER, matcher=matcher))
+        cost_patches_multi.launches = 0
+        result, wall_ms = _timed_call(tracker, video)
+        rows[name] = {"matcher_launches": cost_patches_multi.launches, "wall_ms": wall_ms,
+                      "quality": _quality(result, scene)}
+    gap = {k: rows["recipe"]["quality"][k] - rows["shipped"]["quality"][k]
+           for k in ("pts_within_2", "visibility_accuracy")}
+    emit("matcher_recipe", recipe_s=recipe_s, recipe_stdout=proc.stdout.strip()[-400:],
+         rows=rows, recipe_minus_shipped=gap, tolerance=QUALITY_SLACK,
+         within_tolerance=all(abs(v) <= QUALITY_SLACK for v in gap.values()))
 
 
 EXPORT_CALL = r"""
@@ -2882,6 +3186,17 @@ def _export_launches(counter: str, exported: dict, entry: dict | None = None) ->
     return rows
 
 
+def _mesh_launches(counter: str, mesh: dict) -> dict:
+    """One kernel's launches per call of each mesh tail and of the mesh
+    artifact on the one-rank group (and, for the attention, per sharded
+    train step)."""
+    rows = {f"mesh_{k}": v[counter] for k, v in mesh.items() if k.startswith("tail_")}
+    rows["mesh_export"] = mesh["export"][counter]
+    if counter == "attention":
+        rows["mesh_train_step"] = mesh["train_step_launches"]
+    return rows
+
+
 def main(argv: list[str]) -> int:
     info = phase_device()
     phase_build()
@@ -2897,6 +3212,7 @@ def main(argv: list[str]) -> int:
     fused_block = phase_serving(path, "fused_block", profile="--profile" in argv)
     export_dir = tempfile.TemporaryDirectory()
     exported = phase_export(path, export_dir.name)
+    phase_debug_nans(path)
     del path["pipeline"], path["providers"]
     torch.cuda.empty_cache()
     scenes = make_scenes()
@@ -2914,7 +3230,8 @@ def main(argv: list[str]) -> int:
     if "--profile" in argv:
         profile_pipeline(full["pipeline"], scenes["clean"]["video"], "upload_tracking_features")
     tier_rows = phase_tracking_tiers()
-    realism = phase_realism(full)
+    realism = phase_realism(full, export_dir.name)
+    phase_visualize(realism["viz_path"])
     video_entry = phase_video_entry(scenes["clean"], full)
     export_entry = phase_export_entry(scenes["clean"], full, export_dir.name)
     export_dir.cleanup()
@@ -2932,6 +3249,8 @@ def main(argv: list[str]) -> int:
     train_2d = phase_train("trajan", profile="--profile" in argv)
     torch.cuda.empty_cache()
     phase_train_cli()
+    mesh = phase_mesh(train_3d.pop("batch"))
+    torch.cuda.empty_cache()
     bound_by = "bytes" if totals["bytes_ms"] >= totals["flops_ms"] else "operations"
     kernels = [{
         "name": "fused_masked_attention",
@@ -2969,6 +3288,7 @@ def main(argv: list[str]) -> int:
             "video_entry": {k: v["attention"] for k, v in video_entry.items()},
             **_export_launches("attention", exported, export_entry),
             "export_forward_2d": export_forward["launches"],
+            **_mesh_launches("attention", mesh),
         },
     }]
     main_lk = lk["pipeline"]
@@ -3057,7 +3377,8 @@ def main(argv: list[str]) -> int:
         "wrapper_ms": quant_totals["wrapper_ms"],
         "per": (f"one quantised forward: the {QUANT_LAUNCHES} launches at their shapes, f32 x; "
                 f"launches counted over {RUNS} pipeline_quantized runs"),
-        "launches_on_new_paths": _export_launches("quant_matmul", exported),
+        "launches_on_new_paths": {**_export_launches("quant_matmul", exported),
+                                  **_mesh_launches("quant_matmul", mesh)},
     })
     kernels.append({
         "name": "fused_transformer_block",
@@ -3075,7 +3396,8 @@ def main(argv: list[str]) -> int:
         "unfused_ms": block_totals["unfused_ms"],
         "stage_ms": block_totals["stage_ms"],
         "cuda_kernels_per_call": KERNELS_PER_CALL,
-        "launches_on_new_paths": _export_launches("block", exported),
+        "launches_on_new_paths": {**_export_launches("block", exported),
+                                  **_mesh_launches("block", mesh)},
         "per": (f"one fused-block forward: {BLOCK_LAUNCHES} layers (4 readout, 4 decompress), "
                 f"f32 residual; launches counted over {RUNS} pipeline_fused_block runs"),
     })
@@ -3097,7 +3419,8 @@ def main(argv: list[str]) -> int:
                 f"depth maps twice), f32 output; launches counted over {RUNS} pipeline runs"),
         "launches_on_new_paths": {
             "video_entry": {k: v["bilinear"] for k, v in video_entry.items()},
-            **_export_launches("bilinear", exported, export_entry)},
+            **_export_launches("bilinear", exported, export_entry),
+            **_mesh_launches("bilinear", mesh)},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3107,4 +3430,9 @@ def main(argv: list[str]) -> int:
 
 
 if __name__ == "__main__":
+    if "--matcher_recipe" in sys.argv:  # python3 chip_smoke.py --matcher_recipe OUT.npz
+        phase_device()
+        phase_build()
+        matcher_recipe(sys.argv[sys.argv.index("--matcher_recipe") + 1])
+        sys.exit(0)
     sys.exit(main(sys.argv[1:]))

@@ -11,7 +11,9 @@ metrics}}, "overall": {scaling: ...}, "split": {source: "minival" |
 "full_eval" | "all_files"}}``. Split files come from
 ``tapnet.tapvid3d.splits`` when importable; otherwise every ``.npz`` under
 ``<dataset_path>/<source>/`` is evaluated (``"all_files"``). ``--debug_nans``
-is JAX's NaN debugging and raises here.
+raises ``FloatingPointError`` at the first operator that makes a NaN
+(``tdspa_torch.utils.debug``). Under ``torchrun`` the CLI joins the process
+group, as JAX's joins its multi-host runtime.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     arg("--projection_policy", default="error", choices=["error", "slice", "ignore"],
         help="Handling of reference-layout square dino/depth projection kernels "
              "(tdspa_torch.infer.checkpoint.adapt_reference_projections)")
-    F.boolean(p, "debug_nans", False, "Raise on the first NaN (not in the port)")
+    F.boolean(p, "debug_nans", False,
+              "Raise FloatingPointError at the first operator whose output holds a NaN")
     F.boolean(p, "tiny_model", False,
               "Use the tiny 3DSPA config (smoke tests / CI; checkpoint must match)")
     arg("--device", default="cuda", help="Where the model runs: cuda (default) or cpu")
@@ -75,19 +78,17 @@ def main(argv: list[str] | None = None) -> dict:
         raise ValueError("Must provide checkpoint_path")
     if args.dataset_path is None:
         raise ValueError("Must provide dataset_path")
-    if args.debug_nans:
-        raise NotImplementedError(
-            "--debug_nans is JAX's jax_debug_nans; the port's counterpart comes with "
-            "tdspa/utils/debug.py (ROADMAP.md, queue 1, item 8)"
-        )
     os.makedirs(args.output_dir, exist_ok=True)
 
     from tdspa_torch.data.providers import NpzDirectoryProvider
     from tdspa_torch.eval.harness import evaluate_model
     from tdspa_torch.infer.checkpoint import load_checkpoint
+    from tdspa_torch.parallel.mesh import maybe_initialize_distributed
     from tdspa_torch.utils.device import resolve_device
+    from tdspa_torch.utils.profiling import debug_nans
 
     device = resolve_device(args.device)
+    maybe_initialize_distributed(args.device)  # multi-process when launched as such
     model = None  # evaluate_model builds the full-size 3DSPA by default
     if args.tiny_model:
         from tdspa_torch.utils.testing import tiny_model_3d
@@ -112,18 +113,19 @@ def main(argv: list[str] | None = None) -> dict:
             logger.info("tapnet splits unavailable; evaluating all %d files", len(provider.files))
             indices = range(len(provider.files))
             splits_used[source] = "all_files"
-        all_metrics[source] = evaluate_model(
-            params,
-            (provider[int(i)] for i in indices),
-            num_output_frames=args.num_output_frames,
-            use_dino=args.use_dino,
-            use_depth=args.use_depth,
-            depth_scalings=args.depth_scalings,
-            track_bucket=args.track_bucket,
-            batch_size=args.batch_size,
-            model=model,
-            device=device,
-        )
+        with debug_nans(args.debug_nans):
+            all_metrics[source] = evaluate_model(
+                params,
+                (provider[int(i)] for i in indices),
+                num_output_frames=args.num_output_frames,
+                use_dino=args.use_dino,
+                use_depth=args.use_depth,
+                depth_scalings=args.depth_scalings,
+                track_bucket=args.track_bucket,
+                batch_size=args.batch_size,
+                model=model,
+                device=device,
+            )
         for scaling in args.depth_scalings:
             for key, value in all_metrics[source][scaling].items():
                 if not key.endswith("_std"):

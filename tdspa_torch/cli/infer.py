@@ -7,15 +7,18 @@ Example (on the GPU; ``--device=cpu`` runs the plain versions on the CPU):
 
 Writes ``predictions.npz`` and ``video_info.txt`` in the reference's schema.
 ``--device`` (default ``cuda``) is the only flag the JAX CLI does not have.
-Three flags name pieces the port does not have yet and raise:
-``--track_provider=cotracker`` and ``--vda_torch_adapter`` (external
-packages) and ``--debug_nans``. ``--tail_artifact`` runs a tail exported by
-``tdspa_torch.cli.export``.
+Two flags name pieces from outside the repository and raise:
+``--track_provider=cotracker`` and ``--vda_torch_adapter``.
+``--tail_artifact`` runs a tail exported by ``tdspa_torch.cli.export``;
+``--debug_nans`` raises ``FloatingPointError`` at the first operator that
+makes a NaN (``tdspa_torch.utils.debug``). Under ``torchrun`` the CLI joins
+the process group, as JAX's joins its multi-host runtime.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import sys
 
@@ -71,7 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
     arg("--tracker_matcher", default="",
         help="LK tracker: learned matching head ('' disables, 'auto' = on degraded video, "
              "'default' = always the shipped matcher, else a matcher .npz path)")
-    F.boolean(p, "debug_nans", False, "Raise on the first NaN (not in the port)")
+    F.boolean(p, "debug_nans", False,
+              "Raise FloatingPointError at the first operator whose output holds a NaN")
     arg("--tail_artifact",
         help="Exported fused-tail artifact (tdspa_torch.cli.export) to run in place of the "
              "traced tail; its manifest must match these flags")
@@ -93,9 +97,6 @@ def check_supported(args) -> None:
                        "Video-Depth-Anything repository (ROADMAP.md, queue 1: not queued, "
                        "outside the repository); --vda_model_path alone converts the .pth "
                        "into the port's estimator")
-    if args.debug_nans:
-        missing.append("--debug_nans is JAX's jax_debug_nans; the port's counterpart comes "
-                       "with tdspa/utils/debug.py (ROADMAP.md, queue 1, item 8)")
     if missing:
         raise NotImplementedError("; ".join(missing))
 
@@ -172,14 +173,13 @@ def main(argv: list[str] | None = None) -> dict:
     check_supported(args)
 
     from tdspa_torch.infer.pipeline import InferencePipeline, save_results
+    from tdspa_torch.parallel.mesh import maybe_initialize_distributed
+    from tdspa_torch.utils.profiling import debug_nans, profile_trace
 
+    maybe_initialize_distributed(args.device)  # multi-process when launched as such
     pipeline = InferencePipeline(**pipeline_kwargs(args))
-    if args.profile_dir:
-        from tdspa_torch.utils.profiling import profile_trace
-
-        with profile_trace(args.profile_dir):
-            results = pipeline.run(args.video_path)
-    else:
+    trace = profile_trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
+    with trace, debug_nans(args.debug_nans):
         results = pipeline.run(args.video_path)
     save_results(results, args.output_dir)
     logger.info("Inference completed!")

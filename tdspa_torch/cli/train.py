@@ -9,8 +9,11 @@ With no ``--dataset_path`` (or ``--config_path``, used as the dataset path
 as in the reference) it reads ``./data`` when that directory exists and
 otherwise trains on synthetic tracks (128 videos of 64 tracks). A path that
 is not a directory names a tfds dataset and raises without tfds.
-``--device`` (default ``cuda``) is the only flag the JAX CLI does not have;
-``--debug_nans`` raises, as in the other two CLIs.
+``--device`` (default ``cuda``) is the only flag the JAX CLI does not have.
+``--debug_nans`` raises ``FloatingPointError`` at the first operator that
+makes a NaN (``tdspa_torch.utils.debug``). Under ``torchrun
+--nproc_per_node=N`` the ranks join one process group and train data
+parallel (``train``'s mesh); rank 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import os
 import sys
 
 import torch
+import torch.distributed as dist
 
 from tdspa_torch.cli import flags as F
 
@@ -53,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     F.boolean(p, "bf16", False, "bfloat16 matmul compute in the model (parameters, optimizer "
               "state, softmax, losses and the residual stream stay float32)")
     F.boolean(p, "use_wandb", True, "Log to WandB when available")
-    F.boolean(p, "debug_nans", False, "Raise on the first NaN (not in the port)")
+    F.boolean(p, "debug_nans", False,
+              "Raise FloatingPointError at the first operator whose output holds a NaN")
     arg("--profile_dir",
         help="Write a torch.profiler (Chrome/Perfetto) trace of the training run here")
     arg("--log_jsonl", help="Also append metrics to this JSONL file")
@@ -76,14 +81,14 @@ def main(argv: list[str] | None = None):
     """Run the CLI on ``argv`` (default: the command line); returns the
     final ``TrainState``."""
     args = build_parser().parse_args(argv)
-    if args.debug_nans:
-        raise NotImplementedError(
-            "--debug_nans is JAX's jax_debug_nans; the port's counterpart comes "
-            "with tdspa/utils/debug.py (ROADMAP.md, queue 1, item 8)")
 
     from tdspa_torch.data.providers import load_kubric3d_dataset, load_tapvid_dataset
+    from tdspa_torch.parallel.mesh import maybe_initialize_distributed
     from tdspa_torch.train.loop import train
     from tdspa_torch.train.metrics import MetricLogger
+    from tdspa_torch.utils.profiling import debug_nans, profile_trace
+
+    main_rank = not maybe_initialize_distributed(args.device) or dist.get_rank() == 0
 
     dataset_path = args.dataset_path or args.config_path or (
         "./data" if os.path.isdir("./data") else "")
@@ -108,7 +113,7 @@ def main(argv: list[str] | None = None):
         config={k: getattr(args, k) for k in ("model_type", "batch_size", "learning_rate",
                                               "num_epochs", "num_output_frames", "use_dino",
                                               "use_depth")},
-        use_wandb=args.use_wandb, jsonl_path=args.log_jsonl,
+        use_wandb=args.use_wandb and main_rank, jsonl_path=args.log_jsonl if main_rank else None,
     )
 
     overrides = {}
@@ -123,12 +128,8 @@ def main(argv: list[str] | None = None):
     if args.bf16:
         overrides["dtype"] = torch.bfloat16
 
-    trace = contextlib.nullcontext()
-    if args.profile_dir:
-        from tdspa_torch.utils.profiling import profile_trace
-
-        trace = profile_trace(args.profile_dir)
-    with trace:
+    trace = profile_trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
+    with trace, debug_nans(args.debug_nans):
         state = train(
             train_ds, eval_ds=eval_ds, model_type=args.model_type, num_epochs=args.num_epochs,
             learning_rate=args.learning_rate, warmup_steps=args.warmup_steps,

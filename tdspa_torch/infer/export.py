@@ -27,9 +27,15 @@ Differences from the JAX module, each by necessity:
   (``FakeTensorMode``), so a CUDA artifact can be exported on a host without
   a GPU, as JAX lowers for a TPU from a CPU host.
 * No counterpart of ``register_result_serialization``: the programs return
-  plain dicts. The mesh functions (``export_mesh_tail``,
-  ``call_exported_mesh``, ``load_exported_mesh``) come with the multi-GPU
-  slice (ROADMAP.md, queue 1, item 7).
+  plain dicts.
+* **Mesh artifacts** (``export_mesh_tail``): one program for every rank of
+  a ``torch.distributed`` group. Its gathers are traced as the
+  ``_c10d_functional`` collectives over the default group, which
+  ``torch.export`` keeps, and the rank's position is an input: the
+  calling convention, through ``call_exported_mesh``, stays ``fn(params,
+  perm, ts, tracks_2d, visible, [dino_grid], [depth_maps])``. The artifact is
+  tied to its world size (JAX's ``nr_devices``, in the manifest and read
+  from the graph): a call from another world size is refused.
 """
 
 from __future__ import annotations
@@ -54,8 +60,8 @@ class _Bound:
     def __init__(self, model, params):
         self.model, self.params = model, params
 
-    def __call__(self, batch):
-        return torch.func.functional_call(self.model, self.params, (batch,))
+    def __call__(self, batch, **kwargs):
+        return torch.func.functional_call(self.model, self.params, (batch,), kwargs)
 
 
 def make_serving_fn(model, num_support: int, num_queries: int, video_hw: tuple, use_dino: bool,
@@ -77,21 +83,24 @@ def make_serving_fn(model, num_support: int, num_queries: int, video_hw: tuple, 
         features = list(features)
         dino_grid = features.pop(0) if use_dino else None
         depth_maps = features.pop(0) if use_depth else None
-        preds, batch, tracks_3d = fused_tail(
+        return _outputs(*fused_tail(
             _Bound(model, params), tracks_2d, visible, dino_grid, depth_maps, perm, ts,
             num_support, num_queries, tuple(video_hw), use_dino, use_depth,
-        )
-        return {
-            "tracks": preds.tracks,
-            "visible_logits": preds.visible_logits,
-            "certain_logits": preds.certain_logits,
-            "query_points": batch["query_points"],
-            "tracks_3d": tracks_3d,
-            "support_tracks": batch["support_tracks"],
-            "query_tracks": batch["query_tracks"],
-        }
+        ))
 
     return fn
+
+
+def _outputs(preds, batch, tracks_3d) -> dict:
+    return {
+        "tracks": preds.tracks,
+        "visible_logits": preds.visible_logits,
+        "certain_logits": preds.certain_logits,
+        "query_points": batch["query_points"],
+        "tracks_3d": tracks_3d,
+        "support_tracks": batch["support_tracks"],
+        "query_tracks": batch["query_tracks"],
+    }
 
 
 class _Program(torch.nn.Module):
@@ -179,19 +188,8 @@ def serving_params(model) -> dict[str, torch.Tensor]:
     return dict(model.state_dict())
 
 
-def export_serving_tail(model, params=None, *, num_tracks: int, num_frames: int, video_hw: tuple,
-                        num_support: int, num_queries: int, use_dino: bool = True,
-                        use_depth: bool = True, dino_grid_hw: tuple | None = None,
-                        dino_dim: int = 768, device: str = "cuda"):
-    """Trace the fused serving tail to a ``torch.export.ExportedProgram`` for
-    ``device`` ("cuda" or "cpu").
-
-    ``params`` (default: the model's own) may be real weights or any mapping
-    of tensors with the model's layout: only shapes and dtypes enter the
-    artifact, and the weights are inputs of every call.
-    """
-    params = serving_params(model) if params is None else params
-    fn = make_serving_fn(model, num_support, num_queries, video_hw, use_dino, use_depth)
+def _tail_specs(params, num_tracks, num_frames, video_hw, num_queries, use_dino, use_depth,
+                dino_grid_hw, dino_dim) -> list:
     args = [
         {k: _spec(v.shape, v.dtype) for k, v in params.items()},
         _spec((num_tracks,), torch.int64),  # perm
@@ -205,7 +203,69 @@ def export_serving_tail(model, params=None, *, num_tracks: int, num_frames: int,
         args.append(_spec((num_frames,) + tuple(dino_grid_hw) + (dino_dim,)))
     if use_depth:
         args.append(_spec((num_frames,) + tuple(video_hw) + (1,)))
+    return args
+
+
+def export_serving_tail(model, params=None, *, num_tracks: int, num_frames: int, video_hw: tuple,
+                        num_support: int, num_queries: int, use_dino: bool = True,
+                        use_depth: bool = True, dino_grid_hw: tuple | None = None,
+                        dino_dim: int = 768, device: str = "cuda"):
+    """Trace the fused serving tail to a ``torch.export.ExportedProgram`` for
+    ``device`` ("cuda" or "cpu").
+
+    ``params`` (default: the model's own) may be real weights or any mapping
+    of tensors with the model's layout: only shapes and dtypes enter the
+    artifact, and the weights are inputs of every call.
+    """
+    params = serving_params(model) if params is None else params
+    fn = make_serving_fn(model, num_support, num_queries, video_hw, use_dino, use_depth)
+    return _export(fn, _tail_specs(params, num_tracks, num_frames, video_hw, num_queries,
+                                   use_dino, use_depth, dino_grid_hw, dino_dim), device)
+
+
+def export_mesh_tail(mesh, model, num_support: int, num_queries: int, video_hw: tuple,
+                     use_dino: bool = True, use_depth: bool = True, *, params=None,
+                     num_tracks: int, num_frames: int, dino_grid_hw: tuple | None = None,
+                     dino_dim: int = 768, device: str = "cuda"):
+    """Trace the multi-GPU fused tail (``pipeline.make_mesh_tail``) for the
+    ranks of ``mesh`` (every rank of the process group, in order) to one
+    ``ExportedProgram``; every rank may trace it, and each trace is the same.
+
+    The program is ``fn(params, perm, ts, tracks_2d, visible, [dino_grid],
+    [depth_maps], shard)`` with ``shard`` the rank's position (an int64 0-d
+    tensor); call it through ``call_exported_mesh``, which passes it.
+    """
+    from tdspa_torch.infer.pipeline import mesh_fused_tail
+    from tdspa_torch.parallel.mesh import world_group
+
+    group = world_group(mesh)
+    count = torch.distributed.get_world_size(group)
+    if num_support % count or num_queries % count or num_tracks % count:
+        raise ValueError(f"num_tracks={num_tracks}, num_support={num_support} and "
+                         f"num_queries={num_queries} must divide by the mesh's {count} ranks")
+    params = serving_params(model) if params is None else params
+
+    def fn(params, perm, ts, tracks_2d, visible, *rest):
+        *features, shard = rest
+        dino_grid = features.pop(0) if use_dino else None
+        depth_maps = features.pop(0) if use_depth else None
+        return _outputs(*mesh_fused_tail(
+            _Bound(model, params), group, shard, tracks_2d, visible, dino_grid, depth_maps,
+            perm, ts, num_support, num_queries, tuple(video_hw), use_dino, use_depth))
+
+    args = _tail_specs(params, num_tracks, num_frames, video_hw, num_queries, use_dino,
+                       use_depth, dino_grid_hw, dino_dim) + [_spec((), torch.int64)]
     return _export(fn, args, device)
+
+
+def nr_devices(program) -> int | None:
+    """The group size the program's collectives were traced for (None
+    without collectives)."""
+    sizes = {n.args[1] for n in program.graph.nodes if n.op == "call_function"
+             and str(n.target).startswith("_c10d_functional.all_gather_into_tensor")}
+    if len(sizes) > 1:
+        raise ValueError(f"collectives over groups of several sizes: {sorted(sizes)}")
+    return sizes.pop() if sizes else None
 
 
 def tail_config(model, *, num_tracks: int, num_frames: int, video_hw: tuple, num_support: int,
@@ -265,6 +325,7 @@ def save_exported(exported, path: str, extra_manifest: dict | None = None) -> di
         "nr_outputs": len(exported.graph_signature.output_specs),
         "tdspa_ops": sorted({str(n.target) for n in exported.graph.nodes
                              if n.op == "call_function" and str(n.target).startswith("tdspa.")}),
+        "nr_devices": nr_devices(exported),
         "bytes": os.path.getsize(path),
     }
     if extra_manifest:
@@ -284,6 +345,7 @@ class LoadedProgram:
         self.program = program
         self._module = program.module()
         self._param_names = _param_names(program)
+        self.nr_devices = nr_devices(program)
 
     def call(self, *args):
         if self._param_names is not None:
@@ -296,6 +358,31 @@ def load_exported(path: str) -> LoadedProgram:
     visible, [dino_grid], [depth_maps])`` (or ``.call(params, batch)`` for a
     model forward). Imports no model module."""
     return LoadedProgram(torch.export.load(path))
+
+
+def load_exported_mesh(path: str) -> LoadedProgram:
+    """Load a mesh artifact (``export_mesh_tail``); call it through
+    ``call_exported_mesh`` on a live mesh of its world size. Imports no model
+    module."""
+    loaded = load_exported(path)
+    if loaded.nr_devices is None:
+        raise ValueError(f"{path} holds no collectives: not a mesh artifact")
+    return loaded
+
+
+def call_exported_mesh(exported: LoadedProgram, mesh, params, perm, ts, tracks_2d, visible,
+                       *features) -> dict:
+    """Run a loaded mesh artifact on this rank of ``mesh``, which must hold
+    every rank of a process group of the artifact's world size
+    (``ValueError`` otherwise); ``perm`` and ``ts`` must be the same on every
+    rank. Every rank returns the whole outputs."""
+    world = torch.distributed.get_world_size()
+    if exported.nr_devices != world or mesh.mesh.numel() != world:
+        raise ValueError(f"the artifact was exported for {exported.nr_devices} ranks; this "
+                         f"process group has {world} and the mesh {mesh.mesh.numel()}")
+    shard = torch.tensor(torch.distributed.get_rank(), dtype=torch.int64,
+                         device=tracks_2d.device)
+    return exported.call(params, perm, ts, tracks_2d, visible, *features, shard)
 
 
 def read_manifest(path: str) -> dict:

@@ -20,7 +20,9 @@ CUDA kernel (``tdspa_torch/csrc/attention.cu``) and the tail's three
 bilinear samplings in ``csrc/bilinear.cu``. Two serving configurations of
 the model, as in JAX: ``quantize=True`` (int8 projections,
 ``csrc/quant_matmul.cu``) and ``fused_block=True`` (``csrc/block.cu``).
-``tail_artifact`` runs an exported tail (``infer/export.py``) in its place.
+``tail_artifact`` runs an exported tail (``infer/export.py``) in its place;
+``mesh`` runs it sharded over the ranks of a ``torch.distributed`` group
+(``make_mesh_tail``).
 
 Output schema (``predictions.npz`` + ``video_info.txt``) is the JAX
 package's.
@@ -35,6 +37,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tdspa_torch.data.batch_prep import split_and_sample_queries
 from tdspa_torch.features.depth import VideoDepthEstimator
@@ -50,6 +53,7 @@ from tdspa_torch.ops.geometry import (
     sample_depth_features_for_tracks,
     sample_dino_features_for_tracks,
 )
+from tdspa_torch.parallel.mesh import gather, world_group
 from tdspa_torch.utils.device import resolve_device, synchronize
 
 logger = logging.getLogger(__name__)
@@ -95,6 +99,112 @@ def fused_tail(
     return model(batch), batch, tracks_3d
 
 
+SUPPORT_KEYS = ("support_tracks", "support_tracks_visible")
+QUERY_KEYS = ("query_points", "query_tracks", "query_tracks_visible")
+
+
+def mesh_fused_tail(
+    model,
+    group,
+    shard,  # this rank's position in ``group``: an int, or an int64 0-d tensor
+    tracks_2d,  # [N T 2]
+    visible,  # [N T 1]
+    dino_grid,  # [T Hp Wp D] | None
+    depth_maps,  # [T H W 1] | None
+    perm,  # int[N], the same on every rank
+    ts,  # int[num_queries], the same on every rank
+    num_support: int,
+    num_queries: int,
+    video_hw: tuple,
+    use_dino: bool = True,
+    use_depth: bool = True,
+):
+    """``fused_tail`` with the track set sharded over the ranks of ``group``;
+    every rank returns what ``fused_tail`` returns.
+
+    Each rank lifts its contiguous slice of the N tracks (gathered into the
+    whole ``tracks_3d``, from which every rank splits the same batch), samples
+    the DINO and depth features of its slice of the support tracks only (a
+    bilinear sample depends on its point alone), encodes those tracks, and
+    decodes its slice of the queries against latents computed from every
+    rank's readout tokens. Predictions and features are gathered back in
+    rank order.
+    """
+    count = dist.get_world_size(group)
+    num_frames = tracks_2d.shape[1]
+    device = tracks_2d.device
+
+    def rows(total: int) -> torch.Tensor:  # this rank's contiguous positions
+        part = total // count
+        return torch.arange(part, device=device) + shard * part
+
+    mine = tracks_2d[rows(tracks_2d.shape[0])]
+    if use_depth and depth_maps is not None:
+        local_3d = lift_2d_to_3d(mine, depth_maps)
+    else:
+        local_3d = torch.cat([mine, torch.ones_like(mine[..., :1])], dim=-1)
+    tracks_3d = gather(local_3d, group)
+    batch = split_and_sample_queries(perm, ts, tracks_3d, visible, num_support=num_support,
+                                     num_queries=num_queries, num_frames=num_frames)
+    support_rows, query_rows = rows(num_support), rows(num_queries)
+    local = {k: batch[k][:, support_rows] for k in SUPPORT_KEYS}
+    local.update({k: batch[k][:, query_rows] for k in QUERY_KEYS})
+    local["boundary_frame"] = batch["boundary_frame"]
+    support_2d = tracks_2d[perm[support_rows]]
+    if use_dino and dino_grid is not None:
+        local["dino_features"] = sample_dino_features_for_tracks(
+            dino_grid, support_2d, (num_frames,) + tuple(video_hw) + (3,))[None]
+    if use_depth and depth_maps is not None:
+        local["depth_features"] = sample_depth_features_for_tracks(depth_maps, support_2d)[None]
+    preds = model(local, gather_tokens=lambda tokens: gather(tokens, group, dim=1))
+    predictions = TrackAutoEncoderResults(
+        tracks=gather(preds.tracks, group, dim=1),
+        visible_logits=gather(preds.visible_logits, group, dim=1),
+        certain_logits=gather(preds.certain_logits, group, dim=1),
+    )
+    for key in ("dino_features", "depth_features"):
+        if key in local:
+            batch[key] = gather(local[key], group, dim=1)
+    return predictions, batch, tracks_3d
+
+
+def make_mesh_tail(mesh, model, num_support: int, num_queries: int, video_hw: tuple,
+                   use_dino: bool = True, use_depth: bool = True):
+    """Mesh-sharded fused tail, the multi-GPU decode path: the track set over
+    ('data', 'seq') jointly (``query_sharded_batch_spec``), so each rank
+    encodes its share of the support tracks and decodes its share of the
+    queries (``mesh_fused_tail``); parameters and the feature grids are
+    whole on every rank. The kernels run on each rank's shard unchanged.
+
+    Returns ``tail(tracks_2d, visible, dino_grid, depth_maps, perm, ts)`` ->
+    (predictions, batch, tracks_3d), the same on every rank; ``perm`` and
+    ``ts`` must be the same on every rank (``broadcast_split``).
+    """
+    group = world_group(mesh)
+    count = dist.get_world_size(group)
+    if num_support % count or num_queries % count:
+        raise ValueError(f"num_support={num_support} and num_queries={num_queries} must "
+                         f"divide by the mesh's {count} ranks")
+
+    def tail(tracks_2d, visible, dino_grid, depth_maps, perm, ts):
+        if tracks_2d.shape[0] % count:
+            raise ValueError(f"the {tracks_2d.shape[0]} tracks must divide by the mesh's "
+                             f"{count} ranks")
+        return mesh_fused_tail(model, group, dist.get_rank(group), tracks_2d, visible,
+                               dino_grid, depth_maps, perm, ts, num_support, num_queries,
+                               tuple(video_hw), use_dino, use_depth)
+
+    return tail
+
+
+def broadcast_split(perm: torch.Tensor, ts: torch.Tensor, mesh) -> None:
+    """Overwrite the split's indices on every rank with rank 0's, in place:
+    the sharded tail needs one split, whatever each rank drew."""
+    group = world_group(mesh)
+    for x in (perm, ts):
+        dist.broadcast(x, src=0, group=group)
+
+
 class InferencePipeline:
     """Configured end-to-end pipeline with pluggable front ends.
 
@@ -103,8 +213,10 @@ class InferencePipeline:
     neither, the model keeps its seeded random initialisation.
     ``tail_artifact`` is an exported tail (``infer/export.py``) run in place
     of ``fused_tail`` with the model's parameters; its manifest must match
-    this pipeline's configuration (``ValueError`` otherwise). ``mesh`` waits
-    for the multi-GPU slice.
+    this pipeline's configuration (``ValueError`` otherwise). ``mesh``
+    (``tdspa_torch.parallel.make_mesh``, every rank in order) runs the tail
+    sharded over its ranks (``make_mesh_tail``), with rank 0's split; every
+    rank runs the pipeline and gets the whole result.
     """
 
     def __init__(
@@ -139,11 +251,9 @@ class InferencePipeline:
         tail_artifact: str | None = None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the sharded tail comes with the multi-GPU slice (ROADMAP.md)"
-            )
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._mesh_tail = None
         self.num_output_frames = num_output_frames
         self.use_dino = use_dino
         self.use_depth = use_depth
@@ -351,12 +461,22 @@ class InferencePipeline:
         num_queries = min(self.num_query_points, max(num_tracks - num_support, 1))
         perm, ts = self.split_indices(num_tracks, num_queries, t)
 
-        tail = (self._artifact_tail if self.tail_artifact
-                else functools.partial(fused_tail, self.model))
-        predictions, batch, tracks_3d = self._timed(
-            "fused_tail", tail, tracks_2d, visible, dino_grid, depth_maps, perm, ts, num_support,
-            num_queries, (h, w), self.use_dino, self.use_depth,
-        )
+        if self.mesh is not None:
+            broadcast_split(perm, ts, self.mesh)
+            if self._mesh_tail is None:
+                self._mesh_tail = make_mesh_tail(self.mesh, self.model, num_support,
+                                                 num_queries, (h, w), self.use_dino,
+                                                 self.use_depth)
+            predictions, batch, tracks_3d = self._timed(
+                "fused_tail", self._mesh_tail, tracks_2d, visible, dino_grid, depth_maps, perm,
+                ts)
+        else:
+            tail = (self._artifact_tail if self.tail_artifact
+                    else functools.partial(fused_tail, self.model))
+            predictions, batch, tracks_3d = self._timed(
+                "fused_tail", tail, tracks_2d, visible, dino_grid, depth_maps, perm, ts,
+                num_support, num_queries, (h, w), self.use_dino, self.use_depth,
+            )
         return {
             "predictions": predictions,
             "video": video,

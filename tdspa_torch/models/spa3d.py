@@ -166,7 +166,9 @@ class TrackAutoEncoder3D(nn.Module):
         track_tokens = self.input_track_transformer(track_tokens, qq_mask=mask)
         return track_tokens[..., 0, :]
 
-    def encode(self, inputs) -> torch.Tensor:  # -> float['B 128 96']
+    def encode(self, inputs, gather_tokens=None) -> torch.Tensor:  # -> float['B 128 96']
+        """Latents of the support tracks; ``gather_tokens`` (a sharded
+        caller's) maps this rank's track tokens [B N D] to every rank's."""
         tracks = inputs["support_tracks"]
         visible = inputs["support_tracks_visible"]
         dino, depth = inputs.get("dino_features"), inputs.get("depth_features")
@@ -192,6 +194,8 @@ class TrackAutoEncoder3D(nn.Module):
                       inputs["boundary_frame"], part(dino, i), part(depth, i))
                 for i in range(0, tracks.shape[-3], h)
             ], dim=-2)
+        if gather_tokens is not None:
+            support_track_tokens = gather_tokens(support_track_tokens)
         latents = self.initializer((tracks.shape[0],))
         latents = self.tracks_to_latents(latents, support_track_tokens)
         # Latents leave in f32 whatever the compute dtype (1/128 grid).
@@ -218,8 +222,10 @@ class TrackAutoEncoder3D(nn.Module):
             boundary_frame=inputs["boundary_frame"],
         )
 
-    def decode(self, latents, decoder_context, discretize: bool = True) -> TrackAutoEncoderResults:
-        latents = quantize_latents(latents) if discretize else latents.clamp(-1.0, 1.0)
+    def decode(self, latents, decoder_context, discretize: bool = True,
+               dither_rows=None) -> TrackAutoEncoderResults:
+        latents = (quantize_latents(latents, dither_rows=dither_rows) if discretize
+                   else latents.clamp(-1.0, 1.0))
         latents = self.decompress_attn(self.decompressor(latents))
 
         queries = torch.cat([
@@ -252,5 +258,8 @@ class TrackAutoEncoder3D(nn.Module):
     # Forward
     # ------------------------------------------------------------------ #
 
-    def forward(self, inputs) -> TrackAutoEncoderResults:
-        return chunked_decode(self, self.encode(inputs), inputs)
+    def forward(self, inputs, gather_tokens=None, dither_rows=None) -> TrackAutoEncoderResults:
+        """Encode and decode ``inputs``. The sharded paths (``parallel/``) pass
+        ``gather_tokens`` and ``dither_rows`` (see ``encode``,
+        ``quantize_latents``)."""
+        return chunked_decode(self, self.encode(inputs, gather_tokens), inputs, dither_rows)

@@ -84,11 +84,22 @@ def _dither(shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
     return _cached_dither(shape, device)
 
 
-def quantize_latents(latents: torch.Tensor, levels: float = 128.0) -> torch.Tensor:
-    """Clip to [-1, 1] and round to a 1/levels grid with the fixed dither."""
+def quantize_latents(latents: torch.Tensor, levels: float = 128.0,
+                     dither_rows: tuple[int, int] | None = None) -> torch.Tensor:
+    """Clip to [-1, 1] and round to a 1/levels grid with the fixed dither.
+
+    ``dither_rows=(offset, total)``: the latents are rows ``offset`` on of a
+    batch of ``total`` (a rank's data shard), and take those rows of that
+    batch's dither, as the sharded JAX program does.
+    """
     latents = latents.clamp(-1.0, 1.0)
     latents_disc = torch.round(latents * levels) / levels
-    noise = _dither(tuple(latents.shape), latents.device)
+    if dither_rows is None:
+        noise = _dither(tuple(latents.shape), latents.device)
+    else:
+        offset, total = dither_rows
+        noise = _dither((total,) + tuple(latents.shape[1:]), latents.device)
+        noise = noise[offset : offset + latents.shape[0]]
     latents_disc = latents_disc + noise / levels - 1.0 / (2 * levels)
     # Straight-through form of the reference (forward value == latents_disc).
     return latents - (latents - latents_disc).detach()
@@ -103,14 +114,15 @@ def remat(fn, *args):
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
-def chunked_decode(model, latents, inputs) -> TrackAutoEncoderResults:
+def chunked_decode(model, latents, inputs, dither_rows=None) -> TrackAutoEncoderResults:
     """Both models' decoder: one ``decode`` over every query, or one per
     ``decoder_scan_chunk_size`` queries (the JAX ``nn.scan``), each with its
     context and itself rematerialised as in JAX; the chunks' outputs equal
-    the unchunked ones."""
+    the unchunked ones. ``dither_rows`` as in ``quantize_latents``."""
     h = model.decoder_scan_chunk_size
+    decode = functools.partial(model.decode, dither_rows=dither_rows)
     if h is None:
-        return remat(model.decode, latents, remat(model.get_decoder_context, inputs))
+        return remat(decode, latents, remat(model.get_decoder_context, inputs))
     query_points = inputs["query_points"]
     if query_points.shape[-2] % h:
         raise ValueError(
@@ -118,7 +130,7 @@ def chunked_decode(model, latents, inputs) -> TrackAutoEncoderResults:
             f"{query_points.shape[-2]}"
         )
     parts = [
-        remat(model.decode, latents, remat(
+        remat(decode, latents, remat(
             model.get_decoder_context, {**inputs, "query_points": query_points[..., i : i + h, :]}
         ))
         for i in range(0, query_points.shape[-2], h)
@@ -236,7 +248,9 @@ class TrackAutoEncoder(nn.Module):
         vis = visible[..., 0].bool()[..., None].float()
         return (track_tokens * vis).sum(-2) / torch.clamp(vis.sum(-2), min=1.0)
 
-    def encode(self, inputs) -> torch.Tensor:  # -> float['B 128 64']
+    def encode(self, inputs, gather_tokens=None) -> torch.Tensor:  # -> float['B 128 64']
+        """Latents of the support tracks; ``gather_tokens`` (a sharded
+        caller's) maps this rank's track tokens [B N D] to every rank's."""
         tracks = inputs["support_tracks"]
         visible = inputs["support_tracks_visible"]
         restart = inputs["boundary_frame"]
@@ -254,6 +268,8 @@ class TrackAutoEncoder(nn.Module):
                       visible[..., i : i + h, :, :], restart)
                 for i in range(0, tracks.shape[-3], h)
             ], dim=-2)
+        if gather_tokens is not None:
+            support_track_tokens = gather_tokens(support_track_tokens)
         latents = self.initializer((tracks.shape[0],))
         latents = self.tracks_to_latents(latents, support_track_tokens)
         # Latents leave in f32 whatever the compute dtype (1/128 grid).
@@ -281,8 +297,10 @@ class TrackAutoEncoder(nn.Module):
             boundary_frame=inputs["boundary_frame"],
         )
 
-    def decode(self, latents, decoder_context, discretize: bool = True) -> TrackAutoEncoderResults:
-        latents = quantize_latents(latents) if discretize else latents.clamp(-1.0, 1.0)
+    def decode(self, latents, decoder_context, discretize: bool = True,
+               dither_rows=None) -> TrackAutoEncoderResults:
+        latents = (quantize_latents(latents, dither_rows=dither_rows) if discretize
+                   else latents.clamp(-1.0, 1.0))
         latents = self.decompress_attn(self.decompressor(latents))
 
         queries = torch.cat([
@@ -308,5 +326,8 @@ class TrackAutoEncoder(nn.Module):
             certain_logits=out[..., 3 * t :, None],
         )
 
-    def forward(self, inputs) -> TrackAutoEncoderResults:
-        return chunked_decode(self, self.encode(inputs), inputs)
+    def forward(self, inputs, gather_tokens=None, dither_rows=None) -> TrackAutoEncoderResults:
+        """Encode and decode ``inputs``. The sharded paths (``parallel/``) pass
+        ``gather_tokens`` and ``dither_rows`` (see ``encode``,
+        ``quantize_latents``)."""
+        return chunked_decode(self, self.encode(inputs, gather_tokens), inputs, dither_rows)

@@ -554,3 +554,62 @@ def test_tiny_serving_models_run_their_kernels(cuda_device, knob):
         want = plain(batch)
     scale = want.tracks.abs().max().item()
     torch.testing.assert_close(got.tracks, want.tracks, atol=5e-2 * scale, rtol=0)
+
+
+def _tiny_tail_inputs(device, n=16, t=12, h=24, w=24):
+    gen = torch.Generator(device=device).manual_seed(0)
+    tracks = torch.rand((n, t, 2), generator=gen, device=device) * (w - 1)
+    visible = (torch.rand((n, t, 1), generator=gen, device=device) < 0.8).float()
+    dino = torch.randn((t, 2, 2, 768), generator=gen, device=device)
+    depth = 1.0 + torch.rand((t, h, w, 1), generator=gen, device=device)
+    perm = torch.randperm(n, device=device)
+    ts = torch.randint(0, t, (4,), device=device)
+    return (tracks, visible, dino, depth), perm, ts, (8, 4, (h, w))
+
+
+@pytest.mark.cuda
+def test_debug_nans_names_the_kernel_op_on_the_gpu(cuda_device):
+    """The tiny bf16 tail on the kernels: equal under the NaN check; a NaN in
+    one DINO feature raised at the bilinear kernel's op."""
+    from tdspa_torch.infer.pipeline import fused_tail
+    from tdspa_torch.utils.profiling import debug_nans
+
+    model = tiny_model_3d(12, device=cuda_device, dtype=torch.bfloat16, fused_attention=True)
+    args, perm, ts, shape = _tiny_tail_inputs(cuda_device)
+    with torch.inference_mode():
+        want, _, _ = fused_tail(model, *args, perm, ts, *shape)
+        with debug_nans():
+            got, _, _ = fused_tail(model, *args, perm, ts, *shape)
+        torch.testing.assert_close(got.tracks, want.tracks, rtol=0, atol=0)
+        args[2][:, :, :, 7] = float("nan")
+        with debug_nans(), pytest.raises(FloatingPointError, match="tdspa.bilinear_sample"):
+            fused_tail(model, *args, perm, ts, *shape)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_tail_equals_the_tail(cuda_device, tmp_path):
+    """A one-rank NCCL group: the mesh tail equals ``fused_tail`` bit for bit
+    with the same kernel launches (5 attention + 3 bilinear)."""
+    import torch.distributed as dist
+
+    from tdspa_torch.infer.pipeline import fused_tail, make_mesh_tail
+    from tdspa_torch.kernels.bilinear import bilinear_sample
+    from tdspa_torch.parallel.mesh import make_mesh
+
+    model = tiny_model_3d(12, device=cuda_device, dtype=torch.bfloat16, fused_attention=True)
+    args, perm, ts, (num_support, num_queries, hw) = _tiny_tail_inputs(cuda_device)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        tail = make_mesh_tail(make_mesh(), model, num_support, num_queries, hw)
+        with torch.inference_mode():
+            want, _, want_3d = fused_tail(model, *args, perm, ts, num_support, num_queries, hw)
+            counts = [fused_masked_attention.launches, bilinear_sample.launches]
+            got, _, got_3d = tail(*args, perm, ts)
+            launched = [fused_masked_attention.launches - counts[0],
+                        bilinear_sample.launches - counts[1]]
+    finally:
+        dist.destroy_process_group()
+    assert launched == [5, 3]
+    torch.testing.assert_close(got.tracks, want.tracks, rtol=0, atol=0)
+    torch.testing.assert_close(got_3d, want_3d, rtol=0, atol=0)

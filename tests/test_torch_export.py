@@ -214,8 +214,9 @@ def test_pipeline_runs_the_artifact_and_refuses_a_mismatch(artifact, tmp_path):
         _pipeline(tail_artifact=other).run_on_frames(video)
     with pytest.raises(ValueError, match="num_queries"):
         _pipeline(tail_artifact=path, num_query_points=N_QUERIES - 1).run_on_frames(video)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        _pipeline(mesh=object())
+    # A single-device artifact is not a mesh artifact (tests/test_torch_parallel.py).
+    with pytest.raises(ValueError, match="not a mesh artifact"):
+        export.load_exported_mesh(path)
 
 
 def test_export_cli_and_the_infer_cli_run_the_artifact(tmp_path):

@@ -59,7 +59,9 @@ def test_port_imports_without_jax_tdspa_or_triton():
                  "tdspa_torch.train.state", "tdspa_torch.train.step",
                  "tdspa_torch.train.metrics", "tdspa_torch.train.loop",
                  "tdspa_torch.cli.train", "tdspa_torch.kernels.ops", "tdspa_torch.infer.export",
-                 "tdspa_torch.cli.export"):
+                 "tdspa_torch.cli.export", "tdspa_torch.parallel.mesh",
+                 "tdspa_torch.parallel.shardings", "tdspa_torch.viz.paint",
+                 "tdspa_torch.utils.debug", "tdspa_torch.cli.visualize"):
         assert name in report["modules"]
 
 

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from tdspa.data.batch_prep import split_and_sample_queries as jax_split
 from tdspa.features.depth import ConstantDepthProvider as JaxConstantDepth
@@ -33,6 +34,7 @@ from tdspa_torch.infer import checkpoint
 from tdspa_torch.infer.convert import params_from_flax, params_to_flax
 from tdspa_torch.infer.pipeline import InferencePipeline, fused_tail, save_results
 from tdspa_torch.ops import geometry
+from tdspa_torch.parallel.mesh import make_mesh
 from tdspa_torch.utils.testing import tiny_model_3d
 
 T, H, W = 10, 32, 40
@@ -278,8 +280,25 @@ def test_check_params_structure_reports_like_jax():
 
 def test_pipeline_refuses_what_later_slices_bring(tmp_path):
     model = tiny_model_3d(T, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        InferencePipeline(model=model, device="cpu", mesh=object())
+    # A mesh runs the sharded tail (tests/test_torch_parallel.py at two
+    # ranks); on a one-rank gloo group it gives the unsharded pipeline's
+    # outputs, with rank 0's split.
+    def pipeline(**kw):
+        return InferencePipeline(model=model, device="cpu", num_output_frames=T,
+                                 track_provider=StaticGridProvider(grid_size=4),
+                                 depth_provider=ConstantDepthProvider(), use_dino=False, **kw)
+
+    want = pipeline().run_on_frames(_video())
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        got = pipeline(mesh=make_mesh()).run_on_frames(_video())
+    finally:
+        dist.destroy_process_group()
+    for name in ("tracks", "visible_logits"):
+        np.testing.assert_array_equal(getattr(got["predictions"], name).numpy(),
+                                      getattr(want["predictions"], name).numpy())
+    np.testing.assert_array_equal(got["tracks_3d"].numpy(), want["tracks_3d"].numpy())
     # Exported tails run (tests/test_torch_export.py); the artifact is read
     # at the first run, so a missing one is refused there.
     pipe = InferencePipeline(model=model, device="cpu", tracking_grid_size=4,

@@ -260,10 +260,14 @@ def test_grad_accum_equals_the_full_step(occluded, jax_accum_steps, monkeypatch)
 
 
 def test_a_mesh_raises():
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        tstep.make_train_step(None, None, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        train([{}], mesh=object(), device="cpu")
+    """No fallback: a mesh needs an initialised process group (the sharded
+    steps and loop run in tests/test_torch_parallel.py)."""
+    from tdspa_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh()
+    with pytest.raises(ValueError, match="process group has not been initialized"):
+        train([_batch("3dspa")], mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("with_features", [False, True])
@@ -389,8 +393,23 @@ def test_train_cli_tiny_on_the_cpu(tmp_path, monkeypatch):
     assert state.step == 2
     loaded = load_checkpoint(str(tmp_path / "ck" / "2"), device="cpu")
     assert all(torch.equal(loaded[k], v) for k, v in state.params.items())
-    with pytest.raises(NotImplementedError, match="debug_nans"):
-        train_cli.main(["--debug_nans", "--device=cpu"])
+    # --debug_nans wraps the run in the NaN check: a NaN in the data raises
+    # at the first operator that makes one (tests/test_torch_debug.py).
+    monkeypatch.setattr(providers.SyntheticTrackProvider, "__getitem__",
+                        _nan_example(providers.SyntheticTrackProvider.__getitem__))
+    with pytest.raises(FloatingPointError, match="NaN in the output of"):
+        train_cli.main(["--model_type=trajan", "--tiny_model", "--max_steps=1",
+                        "--batch_size=2", "--nouse_wandb", "--num_output_frames=8",
+                        "--checkpoint_dir=", "--debug_nans", "--device=cpu"])
+
+
+def _nan_example(getitem):
+    def with_nan(self, i):
+        example = getitem(self, i)
+        example["tracks"] = example["tracks"].copy()
+        example["tracks"][0, 0, 0] = np.nan
+        return example
+    return with_nan
 
 
 def test_metric_logger_writes_jax_records(tmp_path):

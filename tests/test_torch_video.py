@@ -155,11 +155,13 @@ def test_infer_flags_become_pipeline_arguments(tmp_path):
     assert isinstance(npz, PrecomputedTrackProvider) and npz.npz_path == f"{tmp_path}/t.npz"
 
     for flag, missing in (("--track_provider=cotracker", "cotracker"),
-                          ("--vda_torch_adapter", "Video-Depth-Anything"),
-                          ("--debug_nans", "debug.py")):
+                          ("--vda_torch_adapter", "Video-Depth-Anything")):
         with pytest.raises(NotImplementedError, match=missing):
             infer_cli.check_supported(_args(flag))
     infer_cli.check_supported(_args())
+    # --debug_nans runs (tests/test_torch_debug.py).
+    infer_cli.check_supported(_args("--debug_nans"))
+    assert _args("--debug_nans").debug_nans and not _args().debug_nans
     # --tail_artifact runs (test_infer_cli_runs_an_exported_tail below).
     infer_cli.check_supported(_args("--tail_artifact=tail.pt2"))
     assert infer_cli.pipeline_kwargs(_args("--device=cpu", "--tail_artifact=tail.pt2")
