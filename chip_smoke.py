@@ -120,17 +120,22 @@ and the script exits non-zero:
    seeded, bf16 compute, fused attention) at T = 150, B = 1, 2048 support
    and 2048 query tracks: 21 attention launches per forward, outputs within
    5e-2 of the range of the same model on plain attention.
-20. attention_backward: ``fused_attention_fn`` (the kernel forward, JAX's
-   recompute backward) at the training path's shapes (3D encoder, latents'
-   cross-attention, readout, 2D encoder; B = 1): dq, dk, dv against autograd
-   through the plain ``xla_reference``; forward and backward ms beside
-   SDPA's forward + backward (timed only).
+20. attention_backward: the backward kernel (``csrc/attention_backward.cu``)
+   at the training path's shapes (3D encoder, latents' cross-attention,
+   readout, 2D encoder; B = 1 of the model): ``fused_attention_fn``'s dq, dk,
+   dv (one launch of each kernel) against the plain version
+   (``attention_backward_reference``) within 2e-2 of each gradient's
+   largest value, dq = 0 on the fully masked item, all finite; the kernel's
+   ms beside its bound (bytes and flops), the plain version's, autograd
+   through ``xla_reference`` (the eager recompute it replaced), SDPA's
+   backward alone and its forward + backward (timed only).
 21. train_3d and train_2d: ``train()`` with each default model at full width
    (bf16, fused attention, encoder and decoder chunks of 256, T = 150, 2048
    support and 2048 query tracks from ``SyntheticTrackProvider``, batch 2, 3
    steps, a checkpoint per step), the resume from step 2 against the
    uninterrupted step 3; then the step alone: step ms, peak memory,
-   attention launches per step (each chunk's forward and its recompute),
+   attention launches per step (each chunk's forward and its recompute)
+   and backward-kernel launches per step (one per differentiated call),
    one accumulated step (2 microbatches) against the full step, the first
    step's loss and gradients against plain attention (bf16, and f32 as the
    yardstick of bf16 noise), and where a step's time goes.
@@ -178,10 +183,11 @@ and the script exits non-zero:
    through ``call_exported_mesh``, against the live mesh tail. The group is
    destroyed at the end, also on failure.
 
-``python3 chip_smoke.py --matcher_recipe OUT.npz`` runs, in place of the
-phases, the one-off measurement of the matcher's whole recipe (4000 steps,
-``python -m tdspa_torch.features.matcher OUT.npz``) scored on the noisy
-scene beside the shipped matcher.
+``python3 chip_smoke.py --matcher_recipe OUT.npz [SEED,SEED,...]`` runs, in
+place of the phases, the one-off measurement of the matcher's whole recipe
+(4000 steps, ``python -m tdspa_torch.features.matcher OUT.npz --seed N``
+for each seed, 0 by default) scored on the noisy scene beside the shipped
+matcher, then the seeds' spread.
 
 With ``--profile``, one more run of each full-width pipeline's stage (and
 of each feature extractor, and one train step of each model) under
@@ -231,6 +237,8 @@ from tdspa_torch.kernels import lk as lk_kernel
 from tdspa_torch.kernels import quant_matmul as qmm
 from tdspa_torch.kernels.attention import (
     VIT_HEAD,
+    attention_backward,
+    attention_backward_reference,
     attention_reference,
     fused_attention_fn,
     fused_masked_attention,
@@ -527,10 +535,14 @@ RESUME_UPDATE_REL_L2 = 1e-2
 # through its saved checkpoint here: the same f32 model and inputs on the
 # same card; cuBLAS may pick another algorithm in another process.
 CLI_EVAL_RTOL = 1e-4
-# Attention backward (fused_attention_fn vs autograd through the plain
-# xla_reference on the same inputs): the backward is that autograd, so only
-# the order of the card's reductions can differ.
-BACKWARD_ATOL = 1e-5
+# Attention backward kernel vs its plain version (attention_backward_reference)
+# on the same inputs, per gradient: within 2e-2 of that gradient's largest
+# value. The kernel rounds g and dS to bf16 as tensor-core operands, where
+# the plain version keeps them f32, and sums in another order; each output
+# is then rounded to bf16 (dq twice: before and after the division by
+# bf16(sqrt(D))), so one or two bf16 steps (2^-8 relative each) of the
+# largest element.
+BACKWARD_REL_ATOL = 2e-2
 # (name, B, S, K, H, D, masked) at B = 1 of the model: the 3D encoder, the
 # latents' cross-attention, the readout and the 2D encoder.
 BACKWARD_SHAPES = [("encoder_3d", 2048, 151, 151, 8, 96, "rows"),
@@ -1632,13 +1644,13 @@ def phase_mesh(batch_3d) -> dict:
             replicate(list(state.params.values()), mesh)
             same_start = all(torch.equal(state.params[k], v) for k, v in start.items())
             local = shard_batch(mesh, batch_3d)
-            fused_masked_attention.launches = 0
+            fused_masked_attention.launches = attention_backward.launches = 0
             (sharded, sharded_metrics), sharded_ms = _timed_call(
                 make_train_step(model, optimizer, schedule, mesh=mesh), state, local)
             step_launches = fused_masked_attention.launches
             rows["train_step"] = dict(
                 single_ms=single_ms, sharded_ms=sharded_ms, same_start=same_start,
-                launches=step_launches,
+                launches=step_launches, backward_launches=attention_backward.launches,
                 single_loss=single_metrics["train/loss"].item(),
                 sharded_loss=sharded_metrics["train/loss"].item(),
                 param_max_abs_diff=max((sharded.params[k] - v).abs().max().item()
@@ -1732,6 +1744,7 @@ def phase_mesh(batch_3d) -> dict:
     if problems:
         raise AssertionError(f"mesh: {problems}")
     return {"train_step_launches": step["launches"],
+            "train_step_backward_launches": step["backward_launches"],
             **{f"tail_{k}": rows[f"tail_{k}"]["mesh_tail_launches"] for k in EXPORT_CONFIGS},
             "export": rows["export"]["launches"]}
 
@@ -2306,20 +2319,24 @@ def step_launches(model_type: str, microbatches: int = 1) -> dict:
     """Attention launches of one training step: each encoder chunk and each
     decoder chunk runs once forward and once more when the backward
     recomputes it (JAX's remats); the latents' stack (self + cross per layer)
-    runs once. The backward itself launches nothing (``xla_reference``)."""
+    runs once. The backward kernel runs once per attention call the loss
+    depends on: as many as the forward's (``backward``)."""
     enc, lat, dec, read = stack_layers(model_type)
     enc_chunks, dec_chunks = TRAIN_SUPPORT // TRAIN_CHUNK, TRAIN_QUERIES // TRAIN_CHUNK
     forward = enc * enc_chunks + 2 * lat + (dec + read) * dec_chunks
     recompute = enc * enc_chunks + (dec + read) * dec_chunks
     return {"forward": microbatches * forward, "recompute": microbatches * recompute,
-            "step": microbatches * (forward + recompute)}
+            "step": microbatches * (forward + recompute), "backward": microbatches * forward}
 
 
 def attention_step_costs(model_type: str) -> dict:
     """Device ms per training step of the attention kernel (forward and
-    recompute launches) and of its backward (autograd through
-    ``xla_reference``, once per attention call the loss depends on), from
-    each training shape timed alone times its count per step."""
+    recompute launches) and of the backward kernel (once per attention call
+    the loss depends on), from each training shape timed alone times its
+    count per step; beside them the plain recompute the backward kernel
+    replaced (autograd through ``xla_reference``), timed the same way.
+    At each shape the backward kernel is held to its plain version
+    (``BACKWARD_REL_ATOL``)."""
     enc, lat, dec, read = stack_layers(model_type)
     depth = 96 if model_type == "3dspa" else 64
     seq = NUM_FRAMES + (1 if model_type == "3dspa" else 0)
@@ -2334,24 +2351,35 @@ def attention_step_costs(model_type: str) -> dict:
               ("decompress", TRAIN_BATCH, 128, 128, False, dec * dec_chunks, dec * dec_chunks),
               ("readout", items, 129, 129, False, read * dec_chunks, read * dec_chunks)]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows, forward_ms, recompute_ms, backward_ms = [], 0.0, 0.0, 0.0
+    rows, forward_ms, recompute_ms, backward_ms, plain_ms = [], 0.0, 0.0, 0.0, 0.0
     for name, batch, s_len, k_len, masked, launches, recomputes in shapes:
         q, k, v, mask = attention_inputs(gen, batch, s_len, k_len, 8, depth, masked)
         g = torch.randn(q.shape, generator=gen, device="cuda")
         one = cuda_ms(lambda: fused_masked_attention(q, k, v, mask), iters=10)
+        got = attention_backward(q, k, v, mask, g)
+        want = attention_backward_reference(q, k, v, mask, g)
+        rel = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                  for a, b in zip(got, want))
+        if not rel <= BACKWARD_REL_ATOL or not all(bool(torch.isfinite(a).all()) for a in got):
+            raise AssertionError(f"backward kernel at the training shape {name}: {rel}")
+        del got, want
+        bwd = cuda_ms(lambda: attention_backward(q, k, v, mask, g), iters=10)
         q, k, v = (x.requires_grad_() for x in (q, k, v))
-        bwd = event_ms(lambda: torch.autograd.grad(xla_reference(q, k, v, mask), (q, k, v), g),
-                       3)
+        plain = event_ms(lambda: torch.autograd.grad(xla_reference(q, k, v, mask), (q, k, v), g),
+                         3)
         rows.append(dict(shape=name, B=batch, S=s_len, K=k_len, kernel_ms=one,
                          forward_launches=launches, recompute_launches=recomputes,
-                         recompute_backward_ms=bwd))
+                         backward_kernel_ms=bwd, backward_rel_err=rel,
+                         plain_recompute_backward_ms=plain))
         forward_ms += launches * one
         recompute_ms += recomputes * one
         backward_ms += launches * bwd
+        plain_ms += launches * plain
         del q, k, v, mask, g
     torch.cuda.empty_cache()
     return {"kernel_forward_ms": forward_ms, "kernel_recompute_ms": recompute_ms,
-            "recompute_backward_ms": backward_ms, "shapes": rows}
+            "backward_kernel_ms": backward_ms, "plain_recompute_backward_ms": plain_ms,
+            "shapes": rows}
 
 
 def train_batch(model_type: str, batch: int | None = None) -> dict:
@@ -2432,32 +2460,49 @@ def phase_trajan2d() -> dict:
             "model": model, "batch": batch, "out": out}
 
 
+def backward_bound(batch, seq, kv_len, heads, depth, masked) -> tuple[float, float]:
+    """(bytes ms, flops ms) of the attention backward: q, k, v (bf16), g (f32)
+    and the key mask (a byte a key) read once, dq, dk, dv (bf16) written once,
+    over 3.35 TB/s; its five products (s, dP, dv, dk, dq: 10 B H S K D flops)
+    over 989 TFLOP/s."""
+    nbytes = batch * heads * depth * (8 * seq + 8 * kv_len) + (batch * kv_len if masked else 0)
+    flops = 10 * batch * heads * seq * kv_len * depth
+    return nbytes / 3.35e12 * 1e3, flops / 989e12 * 1e3
+
+
 def phase_attention_backward() -> dict:
-    """``fused_attention_fn`` (kernel forward, JAX's recompute backward) at the
-    training path's shapes: dq, dk, dv against autograd through the plain
-    ``xla_reference`` on the same inputs, the output against
-    ``attention_reference``; forward and backward ms beside SDPA's forward +
-    backward (timed only)."""
+    """``fused_attention_fn`` at the training path's shapes: its forward
+    against ``attention_reference``, its backward (the kernel of
+    ``csrc/attention_backward.cu``) against ``attention_backward_reference``
+    on the same inputs, dq = 0 on the fully masked item; the backward
+    kernel's ms beside its bound, the plain version's, the eager recompute
+    (autograd through ``xla_reference``), SDPA's backward alone and its
+    forward + backward (timed only)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
     for name, batch, seq, kv_len, heads, depth, masked in BACKWARD_SHAPES:
         torch.cuda.reset_peak_memory_stats()
         q, k, v, mask = attention_inputs(gen, batch, seq, kv_len, heads, depth, masked)
         q, k, v = (x.requires_grad_() for x in (q, k, v))
+        qd, kd, vd = (x.detach() for x in (q, k, v))
         g = torch.randn((batch, seq, heads, depth), generator=gen, device="cuda")
-        before = fused_masked_attention.launches
+        before = (fused_masked_attention.launches, attention_backward.launches)
         out = fused_attention_fn(q, k, v, mask)
         grads = torch.autograd.grad(out, (q, k, v), g)
-        launched = fused_masked_attention.launches - before
-        want_out = attention_reference(q.detach(), k.detach(), v.detach(), mask)
-        plain = xla_reference(q, k, v, mask)
-        want = torch.autograd.grad(plain, (q, k, v), g)
-        errs = {n: (a.float() - b.float()).abs().max().item()
-                for n, a, b in zip(("dq", "dk", "dv"), grads, want)}
-        scales = {n: b.float().abs().max().item() for n, b in zip(("dq", "dk", "dv"), want)}
+        torch.cuda.synchronize()
+        launched = [fused_masked_attention.launches - before[0],
+                    attention_backward.launches - before[1]]
+        want_out = attention_reference(qd, kd, vd, mask)
+        want = attention_backward_reference(qd, kd, vd, mask, g)
+        names = ("dq", "dk", "dv")
+        errs = {n: (a.float() - b.float()).abs().max().item() for n, a, b in zip(names, grads, want)}
+        scales = {n: b.float().abs().max().item() for n, b in zip(names, want)}
+        rel = {n: errs[n] / scales[n] for n in names}
         out_err = (out - want_out).abs().max().item()
         finite = all(bool(torch.isfinite(x).all()) for x in (out, *grads))
-        del out, grads, want_out, plain, want
+        masked_dq = grads[0][0].abs().max().item() if masked == "rows" else None
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del out, grads, want_out, want
 
         def forward():
             with torch.no_grad():
@@ -2466,35 +2511,48 @@ def phase_attention_backward() -> dict:
         def forward_backward():
             torch.autograd.grad(fused_attention_fn(q, k, v, mask), (q, k, v), g)
 
+        kernel_ms = cuda_ms(lambda: attention_backward(qd, kd, vd, mask, g), 10)
+        plain_ms = event_ms(lambda: attention_backward_reference(qd, kd, vd, mask, g), 3)
+        recompute_ms = event_ms(
+            lambda: torch.autograd.grad(xla_reference(q, k, v, mask), (q, k, v), g), 3)
+        forward_ms = event_ms(forward, 10)
+        total_ms = event_ms(forward_backward, 5)
+        torch.cuda.synchronize()  # a fault of the kernel is reported before the library's timing
+        emit("attention_backward", shape=name, library="scaled_dot_product_attention")
         add_mask = None
         if mask is not None:
             add_mask = torch.zeros(mask.shape, device="cuda", dtype=torch.bfloat16)
             add_mask.masked_fill_(~mask, torch.finfo(torch.bfloat16).min)
             add_mask = add_mask[:, None, None, :]
-        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+        qt, kt, vt = (x.transpose(1, 2).requires_grad_() for x in (qd, kd, vd))
         gt = g.to(torch.bfloat16).transpose(1, 2)
 
         def sdpa_forward_backward():
             o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=add_mask)
             torch.autograd.grad(o, (qt, kt, vt), gt)
 
-        forward_ms = event_ms(forward, 10)
-        total_ms = event_ms(forward_backward, 5)
-        torch.cuda.synchronize()  # a fault of the kernel is reported before the library's timing
-        emit("attention_backward", shape=name, library="scaled_dot_product_attention")
-        library_ms = event_ms(sdpa_forward_backward, 5)
+        sdpa_total_ms = event_ms(sdpa_forward_backward, 5)
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=add_mask)
+        sdpa_backward_ms = event_ms(
+            lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), gt, retain_graph=True), 5)
+        bytes_ms, flops_ms = backward_bound(batch, seq, kv_len, heads, depth, masked)
         row = dict(shape=name, B=batch, S=seq, K=kv_len, H=heads, D=depth, masked=bool(masked),
-                   launches=launched, max_abs_err=errs, grad_max_abs=scales,
-                   out_max_abs_err=out_err, atol=BACKWARD_ATOL, out_atol=KERNEL_ATOL,
-                   finite=finite, forward_ms=forward_ms, backward_ms=total_ms - forward_ms,
-                   forward_backward_ms=total_ms, sdpa_forward_backward_ms=library_ms,
-                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+                   launches={"forward": launched[0], "backward": launched[1]},
+                   max_abs_err=errs, grad_max_abs=scales, rel_err=rel,
+                   rel_atol=BACKWARD_REL_ATOL, out_max_abs_err=out_err, out_atol=KERNEL_ATOL,
+                   masked_item_dq_max_abs=masked_dq, finite=finite, kernel_ms=kernel_ms,
+                   bytes_ms=bytes_ms, flops_ms=flops_ms, bound_ms=max(bytes_ms, flops_ms),
+                   bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+                   plain_ms=plain_ms, recompute_backward_ms=recompute_ms,
+                   forward_ms=forward_ms, backward_ms=total_ms - forward_ms,
+                   forward_backward_ms=total_ms, sdpa_backward_ms=sdpa_backward_ms,
+                   sdpa_forward_backward_ms=sdpa_total_ms, peak_mem_gb=peak)
         emit("attention_backward", **row)
-        if (not finite or launched != 1 or max(errs.values()) > BACKWARD_ATOL
-                or out_err > KERNEL_ATOL):
+        if (not finite or launched != [1, 1] or max(rel.values()) > BACKWARD_REL_ATOL
+                or out_err > KERNEL_ATOL or masked_dq not in (None, 0.0)):
             raise AssertionError(f"attention backward wrong: {row}")
         rows[name] = row
-        del q, k, v, mask, g, qt, kt, vt, gt, add_mask
+        del q, k, v, qd, kd, vd, mask, g, qt, kt, vt, gt, add_mask, sdpa_out
         torch.cuda.empty_cache()
     return rows
 
@@ -2531,11 +2589,12 @@ def phase_train(model_type: str, profile: bool = False) -> dict:
                    device="cuda", **schedule_kw, **overrides)
         log = MetricLogger(use_wandb=False)
         torch.cuda.reset_peak_memory_stats()
-        fused_masked_attention.launches = 0
+        fused_masked_attention.launches = attention_backward.launches = 0
         t0 = time.perf_counter()
         state = train([batch] * TRAIN_STEPS, logger=log, **run)
         train_s = time.perf_counter() - t0
         launches = fused_masked_attention.launches
+        backward_launches = attention_backward.launches
         train_peak = torch.cuda.max_memory_allocated() / 1e9
         losses = [r["train/loss"] for r in log.history]
         walls = [r["wall_s"] for r in log.history]
@@ -2565,7 +2624,7 @@ def phase_train(model_type: str, profile: bool = False) -> dict:
     fused_losses, fused_grads = loss_and_grads(model, state.params, batch)
     fused_grads = dict(zip(state.params, fused_grads))
     plain_grads = {}
-    before = fused_masked_attention.launches
+    before = (fused_masked_attention.launches, attention_backward.launches)
     for dtype in (torch.bfloat16, torch.float32):
         plain = build_model(model_type, num_output_frames=NUM_FRAMES, device="cuda", seed=SEED,
                             **{**overrides, "fused_attention": False, "dtype": dtype})
@@ -2576,8 +2635,8 @@ def phase_train(model_type: str, profile: bool = False) -> dict:
         if dtype == torch.bfloat16:
             plain_losses = losses_
         del plain, plain_params, grads_
-    if fused_masked_attention.launches != before:
-        raise AssertionError("the plain-attention model launched the fused kernel")
+    if (fused_masked_attention.launches, attention_backward.launches) != before:
+        raise AssertionError("the plain-attention model launched the fused kernels")
     g_plain, g_f32 = plain_grads[torch.bfloat16], plain_grads[torch.float32]
     grad_rel = {k: _rel_l2({k: fused_grads[k]}, {k: g_plain[k]}) for k in fused_grads}
     kernel_vs_f32 = {k: _rel_l2({k: fused_grads[k]}, {k: g_f32[k]}) for k in fused_grads}
@@ -2592,13 +2651,14 @@ def phase_train(model_type: str, profile: bool = False) -> dict:
 
     step = make_train_step(model, optimizer, schedule)
     torch.cuda.reset_peak_memory_stats()
-    fused_masked_attention.launches = 0
+    fused_masked_attention.launches = attention_backward.launches = 0
     step_ms, step_losses = [], []
     for _ in range(TRAIN_STEPS):
         (state, metrics), ms = _timed_call(step, state, batch)
         step_ms.append(ms)
         step_losses.append(metrics["train/loss"].item())
     step_launches_seen = fused_masked_attention.launches / TRAIN_STEPS
+    step_backward_seen = attention_backward.launches / TRAIN_STEPS
     step_peak = torch.cuda.max_memory_allocated() / 1e9
 
     # One accumulated step (2 microbatches) against the full step, same state.
@@ -2614,9 +2674,10 @@ def phase_train(model_type: str, profile: bool = False) -> dict:
     full_params = _clone(full_state.params)
     reset()
     accum = make_grad_accum_step(model, optimizer, schedule, num_microbatches=2)
-    before = fused_masked_attention.launches
+    before = (fused_masked_attention.launches, attention_backward.launches)
     (acc_state, acc_metrics), accum_ms = _timed_call(accum, state, batch)
-    accum_launches = fused_masked_attention.launches - before
+    accum_launches = fused_masked_attention.launches - before[0]
+    accum_backward_launches = attention_backward.launches - before[1]
     acc_loss, full_loss = acc_metrics["train/loss"].item(), full_metrics["train/loss"].item()
     accum_loss_rel = abs(acc_loss / full_loss - 1)
     accum_lr = schedule(state.step)
@@ -2630,7 +2691,8 @@ def phase_train(model_type: str, profile: bool = False) -> dict:
 
     # Where a step's time goes: the forward (loss, autograd recording), the
     # optimizer update, the backward as the rest; within them the attention
-    # kernel's launches and the recompute backward, each timed alone.
+    # kernel's launches and the backward kernel's, each timed alone (and the
+    # plain recompute the backward kernel replaced, for the saving).
     loss_fn = compute_loss_3d if three_d else compute_loss_2d
     forward_ms = event_ms(lambda: loss_fn(model(batch), batch)["total_loss"], 2)
     _, grads = loss_and_grads(model, state.params, batch)
@@ -2643,13 +2705,14 @@ def phase_train(model_type: str, profile: bool = False) -> dict:
     breakdown = {
         "step_ms": step_median, "forward_ms": forward_ms, "optimizer_ms": optimizer_ms,
         "backward_ms": backward_ms, "attention_kernel_ms": kernel_ms,
-        "attention_recompute_backward_ms": costs["recompute_backward_ms"],
+        "attention_backward_kernel_ms": costs["backward_kernel_ms"],
+        "plain_recompute_backward_ms": costs["plain_recompute_backward_ms"],
         "shares": {
             "attention_kernel": kernel_ms / step_median,
-            "attention_recompute_backward": costs["recompute_backward_ms"] / step_median,
+            "attention_backward_kernel": costs["backward_kernel_ms"] / step_median,
             "rest_of_forward": (forward_ms - costs["kernel_forward_ms"]) / step_median,
             "rest_of_backward": (backward_ms - costs["kernel_recompute_ms"]
-                                 - costs["recompute_backward_ms"]) / step_median,
+                                 - costs["backward_kernel_ms"]) / step_median,
             "optimizer": optimizer_ms / step_median,
         },
         "attention_shapes": costs["shapes"],
@@ -2661,12 +2724,15 @@ def phase_train(model_type: str, profile: bool = False) -> dict:
         model_type=model_type, params=params, batch=TRAIN_BATCH, support=TRAIN_SUPPORT,
         queries=TRAIN_QUERIES, frames=NUM_FRAMES, chunk=TRAIN_CHUNK,
         train_losses=losses, train_wall_s=train_s, train_log_wall_s=walls,
-        train_launches=launches, train_peak_mem_gb=train_peak, saved_steps=saved_steps,
+        train_launches=launches, train_backward_launches=backward_launches,
+        train_peak_mem_gb=train_peak, saved_steps=saved_steps,
         resumed_step=resumed_step, resume_update_rel_l2=resume_update,
         resume_update_limit=RESUME_UPDATE_REL_L2, resume_max_abs_diff=resume_max_abs,
         step_ms=step_ms, step_median_ms=statistics.median(step_ms[1:]), step_losses=step_losses,
         step_peak_mem_gb=step_peak, launches_per_step=step_launches_seen,
+        backward_launches_per_step=step_backward_seen,
         expected_launches=expected, accum_ms=accum_ms, accum_launches=accum_launches,
+        accum_backward_launches=accum_backward_launches,
         accum_loss_rel=accum_loss_rel, accum_loss_rtol=ACCUM_LOSS_RTOL,
         accum_param_excess=param_excess, accum_param_rtol=ACCUM_PARAM_RTOL,
         accum_lr=accum_lr,
@@ -2693,8 +2759,14 @@ def phase_train(model_type: str, profile: bool = False) -> dict:
     if launches != TRAIN_STEPS * expected["step"] or step_launches_seen != expected["step"]:
         problems.append(f"launches {launches} / {step_launches_seen} per step, expected "
                         f"{expected['step']} per step")
-    if accum_launches != step_launches(model_type, 2)["step"]:
-        problems.append(f"accumulated step launched {accum_launches}")
+    if (backward_launches != TRAIN_STEPS * expected["backward"]
+            or step_backward_seen != expected["backward"]):
+        problems.append(f"backward kernel launches {backward_launches} / {step_backward_seen} "
+                        f"per step, expected {expected['backward']} per step")
+    if (accum_launches != step_launches(model_type, 2)["step"]
+            or accum_backward_launches != step_launches(model_type, 2)["backward"]):
+        problems.append(f"accumulated step launched {accum_launches} and "
+                        f"{accum_backward_launches} backward")
     if saved_steps != list(range(1, TRAIN_STEPS + 1)) or resumed_step != TRAIN_STEPS:
         problems.append(f"checkpoints {saved_steps}, resumed to step {resumed_step}")
     if not resume_update <= RESUME_UPDATE_REL_L2:
@@ -2711,6 +2783,8 @@ def phase_train(model_type: str, profile: bool = False) -> dict:
     if problems:
         raise AssertionError(f"train_{model_type}: {problems}")
     return {"launches": launches, "launches_per_step": expected["step"],
+            "backward_launches": backward_launches,
+            "backward_launches_per_step": expected["backward"],
             "step_median_ms": row["step_median_ms"], "peak_mem_gb": step_peak,
             "batch": batch}
 
@@ -2929,34 +3003,52 @@ def phase_matcher_train(noisy) -> dict:
             "step_ms_median": warm_ms}
 
 
-def matcher_recipe(out: str) -> None:
+def matcher_recipe(out: str, seeds: list[int]) -> None:
     """One-off measurement, not a phase of the default run: the shipped
-    matcher's whole recipe (``python -m tdspa_torch.features.matcher out``:
-    4000 steps, bank 3, 48 scenes) on the card, then the trained matcher and
-    the shipped one run by the pipeline's tracker on the Tracked
-    configuration's noisy scene through ``csrc/matcher.cu``, scored against
-    its ground truth and held to each other at QUALITY_SLACK."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "tdspa_torch.features.matcher", out],
-                          capture_output=True, text=True, timeout=1800)
-    recipe_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"the matcher recipe failed: {proc.stderr[-3000:]}")
+    matcher's whole recipe (``python -m tdspa_torch.features.matcher out
+    --seed N``: 4000 steps, bank 3, 48 scenes) on the card once per seed
+    (``out`` gains ``_seed<N>`` before its suffix when there are several),
+    then each trained matcher and the shipped one run by the pipeline's
+    tracker on the Tracked configuration's noisy scene through
+    ``csrc/matcher.cu``, scored against its ground truth and held to each
+    other at QUALITY_SLACK; a last line gives the seeds' spread."""
     video, gt_tracks, gt_visible = make_tracking_scene(**SCENE, **SCENES["noisy"])
     scene = {"gt_tracks": gt_tracks, "gt_visible": gt_visible}
     video = torch.from_numpy(video).cuda()
-    rows = {}
-    for name, matcher in (("recipe", out), ("shipped", "default")):
+
+    def score(matcher) -> dict:
         tracker = PyramidalLKTracker(**dict(TRACKER, matcher=matcher))
         cost_patches_multi.launches = 0
         result, wall_ms = _timed_call(tracker, video)
-        rows[name] = {"matcher_launches": cost_patches_multi.launches, "wall_ms": wall_ms,
-                      "quality": _quality(result, scene)}
-    gap = {k: rows["recipe"]["quality"][k] - rows["shipped"]["quality"][k]
-           for k in ("pts_within_2", "visibility_accuracy")}
-    emit("matcher_recipe", recipe_s=recipe_s, recipe_stdout=proc.stdout.strip()[-400:],
-         rows=rows, recipe_minus_shipped=gap, tolerance=QUALITY_SLACK,
-         within_tolerance=all(abs(v) <= QUALITY_SLACK for v in gap.values()))
+        return {"matcher_launches": cost_patches_multi.launches, "wall_ms": wall_ms,
+                "quality": _quality(result, scene)}
+
+    shipped = score("default")
+    keys = ("pts_within_2", "visibility_accuracy")
+    by_seed = {}
+    for seed in seeds:
+        stem, suffix = os.path.splitext(out)
+        path = out if len(seeds) == 1 else f"{stem}_seed{seed}{suffix}"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "tdspa_torch.features.matcher", path,
+                               f"--seed={seed}"], capture_output=True, text=True, timeout=1800)
+        recipe_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the matcher recipe (seed {seed}) failed: {proc.stderr[-3000:]}")
+        row = score(path)
+        gap = {k: row["quality"][k] - shipped["quality"][k] for k in keys}
+        emit("matcher_recipe", seed=seed, recipe_s=recipe_s,
+             recipe_stdout=proc.stdout.strip()[-400:], rows={"recipe": row, "shipped": shipped},
+             recipe_minus_shipped=gap, tolerance=QUALITY_SLACK,
+             within_tolerance=all(abs(v) <= QUALITY_SLACK for v in gap.values()))
+        by_seed[seed] = {k: row["quality"][k] for k in keys}
+    spread = {k: {"min": min(r[k] for r in by_seed.values()),
+                  "max": max(r[k] for r in by_seed.values()),
+                  "shipped": shipped["quality"][k]} for k in keys}
+    emit("matcher_recipe_seeds", seeds=seeds, by_seed=by_seed, spread=spread,
+         shipped_within_spread={
+             k: v["min"] - QUALITY_SLACK <= v["shipped"] <= v["max"] + QUALITY_SLACK
+             for k, v in spread.items()})
 
 
 EXPORT_CALL = r"""
@@ -3279,7 +3371,7 @@ def main(argv: list[str]) -> int:
             "backward": {k: {"forward_ms": v["forward_ms"], "backward_ms": v["backward_ms"],
                              "sdpa_forward_backward_ms": v["sdpa_forward_backward_ms"]}
                          for k, v in backward.items()},
-            "backward_route": "xla_reference recompute under autograd (no backward kernel)",
+            "backward_route": "the attention_backward kernel (csrc/attention_backward.cu)",
         },
         "launches_on_new_paths": {
             "eval_harness": harness_row["launches"],
@@ -3291,6 +3383,36 @@ def main(argv: list[str]) -> int:
             **_mesh_launches("attention", mesh),
         },
     }]
+    encoder = backward["encoder_3d"]
+    kernels.append({
+        "name": "attention_backward",
+        "route": "cuda",
+        "source": "tdspa_torch/csrc/attention_backward.cu",
+        "replaces": "tdspa/kernels/attention.py:576",
+        "launches": train_3d["backward_launches"] + train_2d["backward_launches"],
+        "launches_by_path": {"train_3d": train_3d["backward_launches"],
+                             "train_2d": train_2d["backward_launches"]},
+        "launches_per_step": {"3dspa": train_3d["backward_launches_per_step"],
+                              "trajan": train_2d["backward_launches_per_step"]},
+        "max_abs_err": max(max(r["max_abs_err"].values()) for r in backward.values()),
+        "max_rel_err": max(max(r["rel_err"].values()) for r in backward.values()),
+        "ms": encoder["kernel_ms"],
+        "plain_ms": encoder["plain_ms"],
+        "bound_ms": encoder["bound_ms"],
+        "bound_by": encoder["bound_by"],
+        "library_ms": encoder["sdpa_backward_ms"],
+        "library": "scaled_dot_product_attention's backward alone (autograd.grad on its saved "
+                   "graph, bf16 cotangent, additive bf16 mask)",
+        "recompute_backward_ms": encoder["recompute_backward_ms"],
+        "shapes": {k: {f: v[f] for f in ("kernel_ms", "bound_ms", "bound_by", "plain_ms",
+                                          "recompute_backward_ms", "sdpa_backward_ms",
+                                          "forward_backward_ms", "sdpa_forward_backward_ms")}
+                   for k, v in backward.items()},
+        "per": ("one backward at the 3D encoder shape (2048, 151, 151, 8, 96; key mask with "
+                "fully masked rows); launches counted over the train_3d and train_2d phases' "
+                f"train() runs ({TRAIN_STEPS} steps each)"),
+        "launches_on_new_paths": {"mesh_train_step": mesh["train_step_backward_launches"]},
+    })
     main_lk = lk["pipeline"]
     kernels.append({
         "name": "track_video_lk_kernel",
@@ -3430,9 +3552,11 @@ def main(argv: list[str]) -> int:
 
 
 if __name__ == "__main__":
-    if "--matcher_recipe" in sys.argv:  # python3 chip_smoke.py --matcher_recipe OUT.npz
+    if "--matcher_recipe" in sys.argv:  # python3 chip_smoke.py --matcher_recipe OUT.npz [SEED,...]
         phase_device()
         phase_build()
-        matcher_recipe(sys.argv[sys.argv.index("--matcher_recipe") + 1])
+        at = sys.argv.index("--matcher_recipe")
+        seeds = sys.argv[at + 2] if len(sys.argv) > at + 2 else "0"
+        matcher_recipe(sys.argv[at + 1], [int(x) for x in seeds.split(",")])
         sys.exit(0)
     sys.exit(main(sys.argv[1:]))

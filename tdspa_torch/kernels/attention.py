@@ -27,10 +27,13 @@ kernels are. ``fused_masked_attention`` goes through the custom op
 ``tdspa::fused_masked_attention`` (``kernels/ops.py``), which
 ``torch.export`` keeps in an exported program. Training differentiates
 through ``fused_attention_fn``, the port of JAX's ``fused_attention`` (a
-``custom_vjp``): its forward is
-``fused_masked_attention`` with f32 output, its backward recomputes
-``xla_reference`` (JAX's ``_xla_reference``) under autograd, the trade JAX
-makes. The JAX package has no backward kernel to port.
+``custom_vjp``): its forward is ``fused_masked_attention`` with f32 output,
+its backward ``attention_backward``, the VJP of ``xla_reference`` (JAX's
+``_xla_reference``, which JAX's ``_fused_bwd`` recomputes under ``jax.vjp``
+and XLA fuses). On CUDA tensors that is the Hopper kernel
+``tdspa_torch/csrc/attention_backward.cu``, which recomputes the
+probabilities from the saved inputs instead of keeping them; on CPU tensors
+its plain version, ``attention_backward_reference``.
 """
 
 from __future__ import annotations
@@ -276,8 +279,7 @@ def xla_reference(q, k, v, key_mask=None):
     9.8125 against 9.798, so the recompute's logits are 0.15 % smaller than
     the forward's. The backward follows JAX's recompute, not the forward.
     """
-    root = torch.tensor(math.sqrt(q.shape[-1]), dtype=torch.float32).to(torch.bfloat16)
-    qs = q.to(torch.bfloat16) / root.to(q.device)
+    qs = q.to(torch.bfloat16) / _root(q.shape[-1], q.device)
     logits = torch.einsum("...qhd,...khd->...hqk", qs.float(), k.to(torch.bfloat16).float())
     if key_mask is not None:
         attend = (key_mask != 0)[..., None, None, :]
@@ -285,6 +287,129 @@ def xla_reference(q, k, v, key_mask=None):
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("...hqk,...khd->...qhd", probs.to(torch.bfloat16).float(),
                         v.to(torch.bfloat16).float())
+
+
+def _root(depth: int, device) -> torch.Tensor:
+    """bf16(sqrt(D)), JAX's ``jnp.sqrt(depth).astype(bfloat16)``."""
+    return torch.tensor(math.sqrt(depth), dtype=torch.float32).to(torch.bfloat16).to(device)
+
+
+def attention_backward_reference(q, k, v, key_mask, g, needs=(True, True, True)):
+    """Plain PyTorch version of the backward kernel: the VJP of
+    ``xla_reference`` for the cotangent g [B,S,H,D], written out at JAX's
+    rounding points. Returns (dq, dk, dv) in the inputs' dtypes, None where
+    ``needs`` is False.
+
+    qs = bf16(q) / bf16(sqrt(D)) in bf16; logits qs.k^T in f32 (masked keys
+    ``finfo(f32).min``); the row max m and sum l, P = exp(s - m) / l in f32;
+    dP = g.v^T rounded to bf16 (the cotangent of bf16 P); D_ = rowsum(dP P);
+    dS = P (dP - D_), zero at masked keys; dq = bf16(bf16(dS.k) / bf16(sqrt(D))),
+    dk = bf16(dS^T.qs), dv = bf16(bf16(P)^T.g).
+    """
+    root = _root(q.shape[-1], q.device)
+    qs = q.to(torch.bfloat16) / root
+    kf, vf, gf = k.to(torch.bfloat16).float(), v.to(torch.bfloat16).float(), g.float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", qs.float(), kf)
+    attend = None
+    if key_mask is not None:
+        attend = (key_mask != 0)[:, None, None, :]
+        logits = torch.where(attend, logits, _FILL)
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    probs = e / e.sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf).to(torch.bfloat16).float()
+    ds = probs * (dp - (dp * probs).sum(dim=-1, keepdim=True))
+    if attend is not None:
+        ds = torch.where(attend, ds, 0.0)
+    dq = dk = dv = None
+    if needs[0]:
+        dqs = torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(torch.bfloat16)
+        dq = (dqs / root).to(q.dtype)
+    if needs[1]:
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs.float()).to(torch.bfloat16).to(k.dtype)
+    if needs[2]:
+        dv = torch.einsum("bhqk,bqhd->bkhd", probs.to(torch.bfloat16).float(), gf)
+        dv = dv.to(torch.bfloat16).to(v.dtype)
+    return dq, dk, dv
+
+
+BACKWARD_ROWS = 160  # query rows and keys per block of csrc/attention_backward.cu
+# tdspa_attention_backward(q, k, v, mask, g, dq, dk, dv, dq_part, dk_part, dv_part,
+#                          B, S, K, H, D, root, stream) in csrc/attention_backward.cu.
+BACKWARD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+
+
+@functools.cache
+def _backward_kernel():
+    fn = build.load("attention_backward").tdspa_attention_backward
+    fn.argtypes = BACKWARD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def backward_chunks(seq: int, kv_len: int) -> tuple[int, int]:
+    """(query chunks, key chunks) of ``csrc/attention_backward.cu``: a block
+    takes up to ``BACKWARD_ROWS`` query rows and keys. More than one key
+    chunk sums f32 partials of dq in a second CUDA kernel; more than one
+    query chunk, those of dk and dv."""
+    return -(-seq // BACKWARD_ROWS), -(-kv_len // BACKWARD_ROWS)
+
+
+def attention_backward(q, k, v, key_mask, g, needs=(True, True, True)):
+    """The backward of ``fused_attention_fn``: (dq, dk, dv) for the cotangent
+    g [B,S,H,D] of its f32 output, None where ``needs`` is False.
+
+    CUDA tensors launch ``csrc/attention_backward.cu`` (bf16 q/k/v with D a
+    multiple of 8 up to 128, bool or float key mask; g is made contiguous
+    f32); anything else raises, and a failed launch raises ``RuntimeError``.
+    CPU tensors run ``attention_backward_reference``.
+    ``attention_backward.launches`` counts kernel launches.
+    """
+    _check(q, k, v, key_mask, torch.float32)
+    if g.shape != q.shape:
+        raise ValueError(f"g must be {tuple(q.shape)}, got {tuple(g.shape)}")
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, key_mask, g, needs)
+    if q.device.type != "cuda" or g.device != q.device:
+        raise ValueError(f"unsupported devices {q.device}, {g.device}")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise TypeError(f"kernel takes bf16 q/k/v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    batch, seq, heads, depth = q.shape
+    kv_len = k.shape[1]
+    if depth % 8 or not 8 <= depth <= 128 or seq == 0 or kv_len == 0:
+        raise ValueError(f"kernel takes D in 8..128 (multiple of 8) and S, K > 0; got {tuple(q.shape)}")
+    g = g.float().contiguous()
+    if key_mask is not None:
+        key_mask = (key_mask if key_mask.dtype == torch.bool else key_mask != 0).contiguous()
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v, g)):
+        raise ValueError("kernel takes contiguous, 16-byte aligned q/k/v and g")
+    grads = [torch.empty(x.shape, dtype=torch.bfloat16, device=q.device) if n else None
+             for x, n in zip((q, k, v), needs)]
+    if not any(needs):
+        return tuple(grads)
+    q_chunks, k_chunks = backward_chunks(seq, kv_len)
+    parts = [None, None, None]
+    if k_chunks > 1 and needs[0]:
+        parts[0] = torch.empty((k_chunks, *q.shape), dtype=torch.float32, device=q.device)
+    for i in (1, 2):
+        if q_chunks > 1 and needs[i]:
+            parts[i] = torch.empty((q_chunks, *k.shape), dtype=torch.float32, device=q.device)
+    ptr = [None if t is None else t.data_ptr() for t in (*grads, *parts)]
+    fn = _backward_kernel()
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            key_mask.data_ptr() if key_mask is not None else None, g.data_ptr(), *ptr,
+            batch, seq, kv_len, heads, depth, float(_root(depth, "cpu")),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"attention backward kernel launch failed: CUDA error {rc}")
+    attention_backward.launches += 1
+    return tuple(grads)
+
+
+attention_backward.launches = 0
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -296,12 +421,8 @@ class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         q, k, v, key_mask = ctx.saved_tensors
-        needed = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            inputs = [x.detach().requires_grad_(n) for x, n in zip((q, k, v), needed)]
-            out = xla_reference(*inputs, key_mask)
-            grads = iter(torch.autograd.grad(out, [x for x in inputs if x.requires_grad], grad))
-        return (*(next(grads) if n else None for n in needed), None)
+        return (*attention_backward(q, k, v, key_mask, grad, tuple(ctx.needs_input_grad[:3])),
+                None)
 
 
 def fused_attention_fn(q, k, v, key_mask=None):
@@ -309,8 +430,9 @@ def fused_attention_fn(q, k, v, key_mask=None):
     [B,K] -> f32 [B,S,H,D] (JAX's ``fused_attention``).
 
     Forward: ``fused_masked_attention`` (the kernel on CUDA tensors, its plain
-    version on CPU tensors). Backward: autograd through ``xla_reference`` on
-    the saved inputs, recomputing the probabilities instead of keeping them.
-    The key mask gets no gradient.
+    version on CPU tensors). Backward: ``attention_backward`` on the saved
+    inputs (the backward kernel on CUDA tensors, ``attention_backward_reference``
+    on CPU tensors), JAX's recompute of the probabilities instead of keeping
+    them. The key mask gets no gradient.
     """
     return _FusedAttention.apply(q, k, v, key_mask)

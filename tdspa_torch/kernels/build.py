@@ -32,7 +32,8 @@ NVCC_FLAGS = (
 # the values its plain version computes, and the bilinear kernel equals the
 # plain gather bit for bit.
 EXTRA_FLAGS = {"lk": ("--fmad=false",), "bilinear": ("--fmad=false",)}
-KERNELS = ("attention", "vit_attention", "lk", "matcher", "quant_matmul", "block", "bilinear")
+KERNELS = ("attention", "vit_attention", "lk", "matcher", "quant_matmul", "block", "bilinear",
+           "attention_backward")
 
 
 def flags(name: str) -> tuple[str, ...]:

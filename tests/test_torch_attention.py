@@ -286,7 +286,7 @@ def test_split_merge_model_matches_pallas_flash_body(chunk_tiles):
 @pytest.mark.parametrize("depth", [64, 96])
 @pytest.mark.parametrize("masked", [True, False])
 def test_fused_attention_fn_gradients_match_jax_vjp(depth, masked):
-    """``fused_attention_fn``'s dq, dk, dv (autograd through ``xla_reference``
+    """``fused_attention_fn``'s dq, dk, dv (``attention_backward_reference``
     on the saved bf16 inputs) against ``jax.vjp`` of JAX's ``_xla_reference``
     at both head widths, masked (item 0 with every key masked) or not. Both
     round at the same points (q/sqrt(D) in bf16, f32 products and softmax,
@@ -331,6 +331,7 @@ def test_fused_attention_fn_gives_only_the_gradients_asked_for():
 @pytest.mark.parametrize("source,symbol,argtypes", [
     ("attention.cu", "tdspa_attention_forward", ka.ARGTYPES),
     ("vit_attention.cu", "tdspa_vit_attention_forward", ka.VIT_ARGTYPES),
+    ("attention_backward.cu", "tdspa_attention_backward", ka.BACKWARD_ARGTYPES),
 ])
 def test_ctypes_signature_matches_the_cuda_entry_point(source, symbol, argtypes):
     """The kernels load only on a GPU host; their C signatures are checked here."""
