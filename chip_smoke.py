@@ -185,9 +185,9 @@ and the script exits non-zero:
 
 ``python3 chip_smoke.py --matcher_recipe OUT.npz [SEED,SEED,...]`` runs, in
 place of the phases, the one-off measurement of the matcher's whole recipe
-(4000 steps, ``python -m tdspa_torch.features.matcher OUT.npz --seed N``
-for each seed, 0 by default) scored on the noisy scene beside the shipped
-matcher, then the seeds' spread.
+(the round-4 recipe: 4000 steps, ``python -m tdspa_torch.features.matcher
+OUT.npz --seed N --natural_frac=0`` for each seed, 0 by default) scored on
+the noisy scene beside the shipped matcher, then the seeds' spread.
 
 With ``--profile``, one more run of each full-width pipeline's stage (and
 of each feature extractor, and one train step of each model) under
@@ -554,13 +554,15 @@ BACKWARD_SHAPES = [("encoder_3d", 2048, 151, 151, 8, 96, "rows"),
 # (bit-equal in the first reading).
 REBUILT_BATCH_RTOL = 1e-6
 # The matcher's training (phase matcher_train): the shipped round-4 recipe's
-# widths and scenes (tdspa/features/matcher.py's __main__), cut from its
+# widths and scenes (tdspa/features/matcher.py's __main__ with
+# --natural_frac=0: cells-only scenes, the distribution the shipped asset was
+# trained on; the CLI's default 0.5 is the unshipped v2 recipe), cut from its
 # 4000 steps to the 1500 of JAX's train_matcher default; one scene per step,
 # cycled. (On an H100, 300 steps left the last logged loss at 0.69 x the first.)
 MATCHER_RECIPE = dict(dim=16, radius=4, hidden=128, stride=2, fhidden=32, bank=3)
 MATCHER_ITERATIONS, MATCHER_OCCLUSION_WEIGHT, MATCHER_LR = 2, 8.0, 2e-3
 MATCHER_SCENES = dict(num_frames=24, height=128, width=192, grid_size=10,
-                      rot_rate_max=float(np.deg2rad(2.5)), deform_amp_max=5.0, natural_frac=0.5)
+                      rot_rate_max=float(np.deg2rad(2.5)), deform_amp_max=5.0, natural_frac=0.0)
 MATCHER_NUM_SCENES, MATCHER_STEPS, MATCHER_RECIPE_STEPS, MATCHER_LOG_EVERY = 48, 1500, 4000, 100
 # The card against the port on the CPU: the first MATCHER_CPU_STEPS steps
 # from one initialisation with the same perturbations. The losses are f32
@@ -2543,7 +2545,7 @@ def phase_attention_backward() -> dict:
                    masked_item_dq_max_abs=masked_dq, finite=finite, kernel_ms=kernel_ms,
                    bytes_ms=bytes_ms, flops_ms=flops_ms, bound_ms=max(bytes_ms, flops_ms),
                    bound_by="bytes" if bytes_ms >= flops_ms else "operations",
-                   plain_ms=plain_ms, recompute_backward_ms=recompute_ms,
+                   kernel_over_bound=kernel_ms / max(bytes_ms, flops_ms), plain_ms=plain_ms, recompute_backward_ms=recompute_ms,
                    forward_ms=forward_ms, backward_ms=total_ms - forward_ms,
                    forward_backward_ms=total_ms, sdpa_backward_ms=sdpa_backward_ms,
                    sdpa_forward_backward_ms=sdpa_total_ms, peak_mem_gb=peak)
@@ -3005,8 +3007,10 @@ def phase_matcher_train(noisy) -> dict:
 
 def matcher_recipe(out: str, seeds: list[int]) -> None:
     """One-off measurement, not a phase of the default run: the shipped
-    matcher's whole recipe (``python -m tdspa_torch.features.matcher out
-    --seed N``: 4000 steps, bank 3, 48 scenes) on the card once per seed
+    matcher's whole round-4 recipe (``python -m tdspa_torch.features.matcher
+    out --seed N --natural_frac=0``: 4000 steps, bank 3, 48 cells-only scenes;
+    the CLI's default ``--natural_frac`` of 0.5 trains the unshipped v2
+    matcher instead) on the card once per seed
     (``out`` gains ``_seed<N>`` before its suffix when there are several),
     then each trained matcher and the shipped one run by the pipeline's
     tracker on the Tracked configuration's noisy scene through
@@ -3031,7 +3035,8 @@ def matcher_recipe(out: str, seeds: list[int]) -> None:
         path = out if len(seeds) == 1 else f"{stem}_seed{seed}{suffix}"
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "tdspa_torch.features.matcher", path,
-                               f"--seed={seed}"], capture_output=True, text=True, timeout=1800)
+                               f"--seed={seed}", "--natural_frac=0"],
+                              capture_output=True, text=True, timeout=1800)
         recipe_s = time.perf_counter() - t0
         if proc.returncode != 0:
             raise AssertionError(f"the matcher recipe (seed {seed}) failed: {proc.stderr[-3000:]}")
@@ -3401,6 +3406,9 @@ def main(argv: list[str]) -> int:
         "bound_ms": encoder["bound_ms"],
         "bound_by": encoder["bound_by"],
         "library_ms": encoder["sdpa_backward_ms"],
+        "by_shape": {name: {key: row[key] for key in ("kernel_ms", "bound_ms", "kernel_over_bound",
+                                                     "plain_ms", "sdpa_backward_ms")}
+                     for name, row in backward.items()},
         "library": "scaled_dot_product_attention's backward alone (autograd.grad on its saved "
                    "graph, bf16 cotangent, additive bf16 mask)",
         "recompute_backward_ms": encoder["recompute_backward_ms"],

@@ -108,26 +108,6 @@ struct Smem {
                                   KV_STAGES * KT * sizeof(float2);
 };
 
-// O[64 x 64] += P[64 x 16] . V[16 x 64], P bf16 in registers (the A
-// fragment), V MN-major in shared memory (transpose bit set).
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
   return *reinterpret_cast<uint32_t*>(&v);
@@ -328,7 +308,7 @@ __global__ void __launch_bounds__(THREADS, 1) masked_attention_kernel(
       for (int kk = 0; kk < KT / 16; ++kk) {
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb) {
-          wgmma_pv(o[nb], p[kk], sm90::desc_sw128(v_tile + nb * BOX) + 128 * kk);
+          sm90::wgmma_rs<64>(o[nb], p[kk], sm90::desc_sw128(v_tile + nb * BOX) + 128 * kk, 1);
         }
       }
       sm90::wgmma_commit();
@@ -501,19 +481,6 @@ __global__ void __launch_bounds__(256) merge_chunks_kernel(const float* __restri
   }
 }
 
-// A 4-D map over [B, N, H, D] with D innermost; boxes of `box_cols` columns,
-// one head and `box_rows` rows.
-int encode_bshd(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* base,
-                int B, int N, int H, int D, int box_cols, int box_rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(D) * elem_bytes;
-  const cuuint64_t strides[3] = {row, row * H, row * H * N};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1,
-                             static_cast<cuuint32_t>(box_rows), 1};
-  return sm90::encode_sw128(map, type, 4, base, dims, strides, box);
-}
-
 template <int KSTEPS, bool OUT_BF16>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
            const CUtensorMap& mo, const void* mask, void* part_o, void* part_ml, int grid, int B,
@@ -572,12 +539,12 @@ extern "C" int tdspa_attention_forward(const void* q, const void* k, const void*
   }
   constexpr auto BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap mq, mk, mv, mo;
-  int err = encode_bshd(&mq, BF16, 2, q, B, S, H, D, 64, ROWS);
-  if (!err) err = encode_bshd(&mk, BF16, 2, k, B, K, H, D, 64, KT);
-  if (!err) err = encode_bshd(&mv, BF16, 2, v, B, K, H, D, 64, KT);
+  int err = sm90::encode_bshd(&mq, BF16, 2, q, B, S, H, D, 64, ROWS);
+  if (!err) err = sm90::encode_bshd(&mk, BF16, 2, k, B, K, H, D, 64, KT);
+  if (!err) err = sm90::encode_bshd(&mv, BF16, 2, v, B, K, H, D, 64, KT);
   if (!err) {
-    err = out_bf16 ? encode_bshd(&mo, BF16, 2, out, B, S, H, D, 64, 64)
-                   : encode_bshd(&mo, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, out, B, S, H, D, 32, 64);
+    err = out_bf16 ? sm90::encode_bshd(&mo, BF16, 2, out, B, S, H, D, 64, 64)
+                   : sm90::encode_bshd(&mo, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, out, B, S, H, D, 32, 64);
   }
   if (err) return err;
   auto st = static_cast<cudaStream_t>(stream);

@@ -620,9 +620,11 @@ def train_matcher(generator: torch.Generator | None = None, steps: int = 1500,
 
 
 def main(argv: list[str] | None = None):
-    """Regenerate the shipped matcher (JAX's flags and defaults, the round-4
-    recipe: bank 3, 4000 steps, 48 scenes of 24 frames, occlusion weight 8,
-    roll <= 2.5 deg/frame, deformation <= 5 px, natural texture on half)."""
+    """Train the matcher with JAX's flags and defaults: bank 3, 4000 steps,
+    48 scenes of 24 frames, occlusion weight 8, roll <= 2.5 deg/frame,
+    deformation <= 5 px, natural texture on half. Those defaults are the
+    unshipped "matcher v2" recipe; the shipped asset is the round-4 recipe,
+    cells-only: the same flags with ``--natural_frac=0``."""
     import argparse
 
     ap = argparse.ArgumentParser(description="Train the learned matcher (PyTorch/CUDA port).")
@@ -640,7 +642,7 @@ def main(argv: list[str] | None = None):
                     help="non-rigid warp augmentation (px max; every other scene); 0 disables")
     ap.add_argument("--natural_frac", type=float, default=0.5,
                     help="fraction of scenes with the 'natural' texture and a camera gamma; "
-                         "0 disables")
+                         "0 regenerates the round-4 cells-only distribution (the shipped asset)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     scene_kwargs = {"num_frames": args.num_frames}

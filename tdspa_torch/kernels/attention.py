@@ -333,10 +333,9 @@ def attention_backward_reference(q, k, v, key_mask, g, needs=(True, True, True))
     return dq, dk, dv
 
 
-BACKWARD_ROWS = 160  # query rows and keys per block of csrc/attention_backward.cu
-# tdspa_attention_backward(q, k, v, mask, g, dq, dk, dv, dq_part, dk_part, dv_part,
+# tdspa_attention_backward(q, k, v, mask, g, dq, dk, dv, dq_part, dk_part, dv_part, stats,
 #                          B, S, K, H, D, root, stream) in csrc/attention_backward.cu.
-BACKWARD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+BACKWARD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
 
 @functools.cache
@@ -347,12 +346,20 @@ def _backward_kernel():
     return fn
 
 
-def backward_chunks(seq: int, kv_len: int) -> tuple[int, int]:
-    """(query chunks, key chunks) of ``csrc/attention_backward.cu``: a block
-    takes up to ``BACKWARD_ROWS`` query rows and keys. More than one key
-    chunk sums f32 partials of dq in a second CUDA kernel; more than one
-    query chunk, those of dk and dv."""
-    return -(-seq // BACKWARD_ROWS), -(-kv_len // BACKWARD_ROWS)
+def backward_rows(depth: int) -> int:
+    """Query rows and keys of one work item of ``csrc/attention_backward.cu``:
+    192 (three warpgroups of 64) for D <= 96, 128 for D > 96, where four
+    192-row tiles of q, g, k, v and dS^T would not fit the SM's shared memory."""
+    return 192 if depth <= 96 else 128
+
+
+def backward_chunks(seq: int, kv_len: int, depth: int) -> tuple[int, int]:
+    """(query chunks, key chunks) of ``csrc/attention_backward.cu``: a work
+    item takes up to ``backward_rows(depth)`` query rows and keys. More than
+    one key chunk runs a row-statistics pass first and sums f32 partials of dq
+    in a last CUDA kernel; more than one query chunk, those of dk and dv."""
+    rows = backward_rows(depth)
+    return -(-seq // rows), -(-kv_len // rows)
 
 
 def attention_backward(q, k, v, key_mask, g, needs=(True, True, True)):
@@ -387,13 +394,16 @@ def attention_backward(q, k, v, key_mask, g, needs=(True, True, True)):
              for x, n in zip((q, k, v), needs)]
     if not any(needs):
         return tuple(grads)
-    q_chunks, k_chunks = backward_chunks(seq, kv_len)
-    parts = [None, None, None]
+    q_chunks, k_chunks = backward_chunks(seq, kv_len, depth)
+    parts = [None, None, None, None]
     if k_chunks > 1 and needs[0]:
         parts[0] = torch.empty((k_chunks, *q.shape), dtype=torch.float32, device=q.device)
     for i in (1, 2):
         if q_chunks > 1 and needs[i]:
             parts[i] = torch.empty((q_chunks, *k.shape), dtype=torch.float32, device=q.device)
+    if k_chunks > 1:  # the row-statistics pass's (m, l, sum P dP) per key chunk
+        parts[3] = torch.empty((k_chunks, batch, heads, seq, 4), dtype=torch.float32,
+                               device=q.device)
     ptr = [None if t is None else t.data_ptr() for t in (*grads, *parts)]
     fn = _backward_kernel()
     with torch.cuda.device(q.device):

@@ -2,12 +2,14 @@
 
     python3 tdspa_torch/tools/backward_variants.py
 
-Builds copies of the source with one part removed (the row pass, the key
-pass, dq, or all three: loads and the remaining stores alone) or with the
-divisions by bf16(sqrt(D)) made IEEE divisions (``__fdiv_rn``) again, loads
-each with ctypes in place of the wrapper's kernel and times it at the 3D
-encoder, readout and 2D encoder shapes of phase ``attention_backward``
-(B = 2048), in turns. The removed variants compute wrong gradients: only
+Builds copies of the source with the products and elementwise work of one
+phase of the consumer warpgroups removed (phase 1, the row pass with the
+dP^T it stores; phase 2, the key pass: s^T, P^T, dS^T and dv; phase 3, dk
+and dq; or all three: the loads, the conversions and the stores alone) or
+with the divisions by bf16(sqrt(D)) made IEEE divisions (``__fdiv_rn``)
+again, loads each with ctypes in place of the wrapper's kernel and times it
+at the 3D encoder, readout and 2D encoder shapes of phase
+``attention_backward`` (B = 2048), in turns. The removed variants compute wrong gradients: only
 their times mean anything. The division variant must equal the kernel bit
 for bit. Prints one JSON line per shape. Needs a GPU and nvcc; the copies
 are built into the git-ignored ``build/`` directory.
@@ -29,13 +31,16 @@ VARIANTS = {
                        "x0 = __fdiv_rn(round_bf16(x0), root);"),
                       ("x1 = div_root(round_bf16(x1), root, rinv);",
                        "x1 = __fdiv_rn(round_bf16(x1), root);")],
-    "no_row_pass": [("if (!my_rows) continue;", "if (true) continue;")],
-    "no_key_pass": [("if (16 * warp < keys) {", "if (16 * warp < keys && K < 0) {")],
-    "no_dq": [("if (!my_rows) return;\n  float acc_q", "if (K > 0) return;\n  float acc_q")],
+    "no_row_pass": [("    if (r0 < rows) {\n#pragma unroll 1\n      for (int t = 0;",
+                     "    if (r0 < rows && K < 0) {\n#pragma unroll 1\n      for (int t = 0;")],
+    "no_key_pass": [("    if (kr < keys) {\n      float (&acc)", "    if (kr < keys && K < 0) {\n      float (&acc)")],
+    "no_dk_dq": [("      if (kr < keys) {\n        const int steps = (rows + 15) / 16;",
+                  "      if (kr < keys && K < 0) {\n        const int steps = (rows + 15) / 16;"),
+                 ("      if (mine) {", "      if (mine && K < 0) {")],
 }
 VARIANTS["loads_and_stores"] = (VARIANTS["no_row_pass"] + VARIANTS["no_key_pass"]
-                                + VARIANTS["no_dq"])
-ORDER = ["kernel", "ieee_division", "no_row_pass", "no_key_pass", "no_dq", "loads_and_stores",
+                                + VARIANTS["no_dk_dq"])
+ORDER = ["kernel", "ieee_division", "no_row_pass", "no_key_pass", "no_dk_dq", "loads_and_stores",
          "ieee_division", "kernel"]
 SHAPES = [("encoder_3d", 2048, 151, 151, 8, 96, "rows"), ("readout", 2048, 129, 129, 8, 96, False),
           ("encoder_2d", 2048, 150, 150, 8, 64, "rows")]

@@ -90,11 +90,13 @@ def test_cpu_backward_runs_the_plain_version_and_launches_nothing():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("seq,kv_len,chunks", [(151, 151, (1, 1)), (128, 2048, (1, 13)),
-                                               (160, 161, (1, 2)), (300, 9, (2, 1))])
-def test_backward_chunks(seq, kv_len, chunks):
-    """A block of the kernel takes at most 160 query rows and 160 keys."""
-    assert ka.backward_chunks(seq, kv_len) == chunks
+@pytest.mark.parametrize("seq,kv_len,depth,chunks", [
+    (151, 151, 96, (1, 1)), (128, 2048, 96, (1, 11)), (192, 192, 64, (1, 1)),
+    (192, 193, 96, (1, 2)), (300, 9, 8, (2, 1)), (151, 151, 128, (2, 2))])
+def test_backward_chunks(seq, kv_len, depth, chunks):
+    """A work item of the kernel takes at most 192 query rows and 192 keys
+    (128 for D > 96)."""
+    assert ka.backward_chunks(seq, kv_len, depth) == chunks
 
 
 def test_backward_rejects_what_the_kernel_does_not_take():

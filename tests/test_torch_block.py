@@ -237,7 +237,7 @@ def test_qkv_gemm_tiles_hold_whole_heads_and_fit_shared_memory(head_dim):
     bn = wide if head_dim == 96 else narrow
     assert bn % head_dim == 0 and bn <= 256
     sm90 = (Path(kb.build.CSRC) / "sm90.cuh").read_text()
-    assert f"wgmma_bf16<{bn}>(float (&d)[{bn // 2}]" in sm90
+    assert f"struct Wgmma<{bn}> {{" in sm90 and f"float (&d)[{bn // 2}]" in sm90
     stages = int(re.search(r"G_STAGES = (\d+);", src).group(1))
     for width, out_bytes in ((bn, 2), (128, 4), (128, 2)):  # QKV; out-proj / MLP out; GELU
         smem = 1024 + stages * (128 + width) * 128 + 2 * 64 * width * out_bytes + 2 * stages * 8

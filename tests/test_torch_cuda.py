@@ -246,12 +246,23 @@ def test_fused_attention_fn_backward_matches_plain_version(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 300, 9, 2, 64, True), (3, 5, 9, 2, 8, True),
-                                   (2, 77, 1000, 8, 128, True), (4, 33, 170, 2, 40, False)])
+@pytest.mark.parametrize("shape", [
+    (3, 300, 9, 2, 64, True), (3, 5, 9, 2, 8, True), (2, 77, 1000, 8, 128, True),
+    (4, 33, 170, 2, 40, False),
+    # The one-item limit (192 query rows and keys at D <= 96) and the first
+    # chunked shape past it.
+    (2, 192, 192, 2, 96, True), (2, 193, 193, 2, 96, True),
+    # B H below the card's 132 SMs and not a multiple of them: the persistent
+    # grid's last wave; a fully masked item at D = 96.
+    (5, 151, 151, 7, 96, True), (25, 151, 151, 8, 64, True),
+    # The latents' cross-attention: the row-statistics pass over 2048 keys.
+    (2, 128, 2048, 8, 96, False)])
 def test_attention_backward_kernel_chunks_and_widths(cuda_device, shape):
-    """The backward kernel where it splits the queries (S > 160: dk, dv summed
-    over chunks) or the keys (K > 160: dq summed over chunks), at head widths
-    8, 40 and 128; deterministic, and only the gradients asked for."""
+    """The backward kernel where it splits the queries (S > 192, or > 128 at
+    D > 96: dk, dv summed over chunks) or the keys (K > 192: row statistics
+    merged over chunks, dq summed over chunks), at the one-item limit, on a
+    partial last wave, at head widths 8, 40, 64, 96 and 128; deterministic,
+    dq zero on a fully masked item, and only the gradients asked for."""
     q, k, v, mask = _inputs(cuda_device, *shape)
     g = torch.randn(q.shape, device=cuda_device)
     got = attention_backward(q, k, v, mask, g)
@@ -259,9 +270,26 @@ def test_attention_backward_kernel_chunks_and_widths(cuda_device, shape):
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), atol=2e-2 * b.float().abs().max().item(),
                                    rtol=0)
+    if mask is not None:
+        assert got[0][0].abs().max().item() == 0.0
     assert all(torch.equal(a, b) for a, b in zip(got, attention_backward(q, k, v, mask, g)))
     dq, dk, dv = attention_backward(q, k, v, mask, g, needs=(False, True, False))
     assert dq is None and dv is None and torch.equal(dk, got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 151, 151, 8, 96, True), (512, 129, 129, 8, 96, False),
+                                   (512, 150, 150, 8, 64, True)])
+def test_attention_backward_kernel_repeats_bit_for_bit_at_training_shapes(cuda_device, shape):
+    """At the training step's encoder and readout shapes (2 x 256 tracks a
+    chunk) each work item owns its (item, head) whole: no atomics and no
+    partial sums, so two calls give the same bits (the sharded step's
+    equality with the single-device one rests on it)."""
+    q, k, v, mask = _inputs(cuda_device, *shape, seed=3)
+    g = torch.randn(q.shape, device=cuda_device)
+    first = attention_backward(q, k, v, mask, g)
+    for _ in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(first, attention_backward(q, k, v, mask, g)))
 
 
 @pytest.mark.cuda
