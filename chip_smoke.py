@@ -81,8 +81,10 @@ and the script exits non-zero:
 12. block_kernel: the fused block (``csrc/block.cu``) against
    ``block_reference`` at the readout [512,129,1280] (MLP 1536) and
    decompress [1,128,1152] (MLP 2048) layers, each of its seven CUDA
-   kernels timed alone, and the port's unfused layer (what
-   ``fused_block=False`` runs) timed beside it.
+   kernels timed alone beside its own bound (``stage_ms``,
+   ``stage_bound_ms``, ``stage_share``), the readout's attention stage
+   beside ``csrc/attention.cu`` at the same shape, and the port's unfused
+   layer (what ``fused_block=False`` runs) timed beside it.
 13. bilinear_kernel: the bilinear kernel (``csrc/bilinear.cu``) against the
    plain gather on the tail's DINO grid [150,36,36,768] and depth maps
    [150,512,512,1] at 4096 tracks: equal bit for bit; ``grid_sample`` with
@@ -252,6 +254,7 @@ from tdspa_torch.kernels.block import (
     KERNELS_PER_CALL,
     STAGES as BLOCK_STAGES,
     _operands,
+    attention_plan,
     block_reference,
     fused_transformer_block,
     launch_stages as block_launch_stages,
@@ -800,6 +803,8 @@ def phase_kernel() -> dict:
                                       cuda_kernels_per_call=plan["cuda_kernels"]),
                                  q, k, v, mask, library_ms)
         torch.cuda.synchronize()
+        totals.setdefault("shape_ms", {})[name] = {
+            str(dt).removeprefix("torch."): rows[dt][0]["ms"] for dt in rows}
         if per_forward:
             # One forward's attention work (the pipeline's residual stream is f32;
             # the bf16-output total is the like-for-like comparison with SDPA).
@@ -2049,10 +2054,38 @@ def block_bound(items, seq, width, mlp, heads, head_dim, nbytes) -> tuple[float,
     return (2 * rows * width * 4 + nbytes) / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
 
 
-def phase_block_kernel() -> dict:
+def block_stage_bounds(items, seq, width, mlp, heads, head_dim, x_bytes) -> dict:
+    """Each stage's least time, {stage: (ms, "bytes" or "operations")}, with
+    ``block_bound``'s constants: its inputs read once and outputs written once
+    (bf16 intermediates, f32 y and out), its bf16 products at the bf16 peak."""
+    rows, hd = items * seq, heads * head_dim
+    act = rows * width
+    parts = {  # (bytes, operations)
+        "ln1": (act * x_bytes + act * 2 * (2 if x_bytes == 4 else 1) + width * 2, 0.0),
+        "qkv": (act * 2 + 3 * hd * width * 2 + rows * 3 * hd * 2 + 2 * head_dim * 2,
+                2.0 * act * 3 * hd),
+        "attention": (rows * 3 * hd * 2 + rows * hd * 2, 4.0 * items * heads * seq * seq * head_dim),
+        "out_proj": (rows * hd * 2 + act * 2 + act * 4 + width * hd * 2 + width * 2,
+                     2.0 * rows * hd * width),
+        "ln2": (act * 4 + act * 2 + width * 2, 0.0),
+        "mlp_in": (act * 2 + mlp * width * 2 + rows * mlp * 2 + mlp * 2, 2.0 * act * mlp),
+        "mlp_out": (rows * mlp * 2 + act * 4 + act * 4 + width * mlp * 2 + width * 2,
+                    2.0 * rows * mlp * width),
+    }
+    out = {}
+    for stage, (nbytes, flops) in parts.items():
+        bytes_ms, flops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+        out[stage] = (max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations")
+    return out
+
+
+def phase_block_kernel(attention_shape_ms: dict) -> dict:
     """The fused block against ``block_reference`` at the readout and
     decompress layers (seeded weights, norm scales and biases perturbed so
-    that none is trivial); the unfused layer timed beside it."""
+    that none is trivial); the unfused layer timed beside it; each of the
+    seven CUDA kernels timed alone against its own bound; at the readout
+    layer, the attention stage beside ``csrc/attention.cu`` at the same shape
+    (``readout_self`` of phase ``kernel``, bf16 out, timed in this run)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     totals = new_totals()
     totals["unfused_ms"] = 0.0
@@ -2090,10 +2123,25 @@ def phase_block_kernel() -> dict:
         bytes_ms, flops_ms = block_bound(items, seq, width, mlp, BLOCK_HEADS,
                                          BLOCK_QKV // BLOCK_HEADS, nbytes)
         bound_ms = max(bytes_ms, flops_ms)
+        stage_bounds = block_stage_bounds(items, seq, width, mlp, BLOCK_HEADS,
+                                          BLOCK_QKV // BLOCK_HEADS, x.element_size())
+        stage_bound_ms = {stage: stage_bounds[stage][0] for stage in BLOCK_STAGES}
+        # The A and B tiles the GEMMs read from L2 (128-row tiles; Q/K/V's N
+        # tile 192 wide at heads of 96), and the rate at which each stage read them.
+        rows, hd = items * seq, BLOCK_QKV
+        tile_gb = {stage: -(-rows // 128) * -(-n // bn) * (128 + bn) * k * 2 / 1e9
+                   for stage, n, k, bn in (("qkv", 3 * hd, width, 192), ("out_proj", width, hd, 128),
+                                           ("mlp_in", mlp, width, 128), ("mlp_out", width, mlp, 128))}
         row = dict(shape=name, x=[items, seq, width], mlp=mlp, heads=BLOCK_HEADS,
                    head_dim=BLOCK_QKV // BLOCK_HEADS, per_forward=per_forward,
                    cuda_kernels_per_call=KERNELS_PER_CALL, max_abs_err=err, mean_abs_err=mean_err,
                    ref_max_abs=scale, atol=BLOCK_ATOL, finite=finite, ms=ms, stage_ms=stage_ms,
+                   stage_bound_ms=stage_bound_ms,
+                   stage_bound_by={stage: stage_bounds[stage][1] for stage in BLOCK_STAGES},
+                   stage_share={stage: stage_bound_ms[stage] / stage_ms[stage]
+                                for stage in BLOCK_STAGES},
+                   gemm_tile_operand_gb=tile_gb,
+                   gemm_tile_operand_tb_s={k: v / stage_ms[k] for k, v in tile_gb.items()},
                    plain_ms=plain_ms,
                    unfused_ms=unfused_ms, library_ms=None,
                    library="no single PyTorch call computes a whole block",
@@ -2102,6 +2150,15 @@ def phase_block_kernel() -> dict:
         emit("block_kernel", **row)
         if not finite or err > BLOCK_ATOL:
             raise AssertionError(f"block kernel disagrees with its plain version: {row}")
+        if name == "readout":
+            # The same attention (512, 129, 129, 8, 96, unmasked, bf16 out)
+            # through the block's stage and through csrc/attention.cu.
+            emit("block_kernel", shape=name, stage="attention", ms=stage_ms["attention"],
+                 bound_ms=stage_bound_ms["attention"],
+                 stage_share=stage_bound_ms["attention"] / stage_ms["attention"],
+                 attention_cu_ms=attention_shape_ms["readout_self"]["bfloat16"],
+                 attention_cu_shape="readout_self",
+                 plan=attention_plan(items, seq, BLOCK_HEADS, BLOCK_QKV // BLOCK_HEADS, SMS))
         totals["max_abs_err"] = max(totals["max_abs_err"], err)
         for key, value in (("ms", ms), ("plain_ms", plain_ms), ("unfused_ms", unfused_ms),
                            ("bytes_ms", bytes_ms), ("flops_ms", flops_ms)):
@@ -2109,6 +2166,8 @@ def phase_block_kernel() -> dict:
         for stage, value in stage_ms.items():
             totals.setdefault("stage_ms", {}).setdefault(stage, 0.0)
             totals["stage_ms"][stage] += per_forward * value
+            totals.setdefault("stage_bound_ms", {}).setdefault(stage, 0.0)
+            totals["stage_bound_ms"][stage] += per_forward * stage_bound_ms[stage]
         del block, x, ops
         torch.cuda.empty_cache()
     totals["library_ms"] = None
@@ -2246,7 +2305,7 @@ KERNEL_CLASSES = (  # (class, substrings of a device kernel's name), first match
     ("vit_attention", ("vit_attention_kernel",)),
     ("attention", ("masked_attention_kernel", "merge_chunks_kernel")),
     ("quant_matmul", ("int8_gemm_kernel", "quantize_rows_kernel")),
-    ("block", ("layernorm_kernel", "gemm_kernel<", "attention_kernel<")),
+    ("block", ("layernorm_kernel", "gemm_kernel<", "gemm_pp_kernel<", "block_attention_kernel<")),
     ("bilinear", ("bilinear_kernel",)),
     ("lk", ("lk_track_kernel",)),
     ("matcher_costs", ("cost_patches_kernel",)),
@@ -3300,7 +3359,7 @@ def main(argv: list[str]) -> int:
     totals = phase_kernel()
     vit_totals = phase_vit_kernel()
     quant_totals = phase_quant_kernel()
-    block_totals = phase_block_kernel()
+    block_totals = phase_block_kernel(totals["shape_ms"])
     path = phase_pipeline()
     if "--profile" in argv:
         profile_pipeline(path["pipeline"], path["video"], "fused_tail")
@@ -3525,6 +3584,7 @@ def main(argv: list[str]) -> int:
         "library_ms": None,
         "unfused_ms": block_totals["unfused_ms"],
         "stage_ms": block_totals["stage_ms"],
+        "stage_bound_ms": block_totals["stage_bound_ms"],
         "cuda_kernels_per_call": KERNELS_PER_CALL,
         "launches_on_new_paths": {**_export_launches("block", exported),
                                   **_mesh_launches("block", mesh)},

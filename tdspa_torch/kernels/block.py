@@ -16,12 +16,15 @@ products with f32 accumulation, two-pass f32 LayerNorm statistics, and f32
 residual sums. The TPU body keeps a whole item and the layer's weights in
 VMEM; an H100 SM holds 228 KB of shared memory, less than one readout item
 (129 x 1280 bf16 is 330 KB). So ``tdspa_torch/csrc/block.cu`` runs the layer
-as ``KERNELS_PER_CALL`` launches of its own kernels (``STAGES``: LayerNorm,
-a Q/K/V GEMM whose N tile holds whole heads so that the RMSNorm sees each
-head's row, an attention stage per (item, head) with all keys in shared
-memory, the out-projection GEMM with bias and residual, LayerNorm, the MLP
-GEMMs with bias and GELU or bias and residual). The four GEMMs are one
-persistent TMA + ``wgmma`` kernel with four epilogues. One wrapper call
+as ``KERNELS_PER_CALL`` launches of its own kernels (``STAGES``): a streaming
+LayerNorm (rows held in registers), a Q/K/V GEMM whose N tile holds whole
+heads so that the RMSNorm sees each head's row, an attention stage that
+loads q, k and v of each (item, head) once with TMA and keeps every logit of
+a row in registers (``attention_plan``), the out-projection GEMM with bias
+and residual, LayerNorm, the MLP GEMMs with bias and GELU or bias and
+residual. The four GEMMs are persistent TMA + ``wgmma`` kernels: the Q/K/V
+one cooperative, the other three ping-pong (each consumer warpgroup its own
+tile, the residual loaded by TMA under the main loop). One wrapper call
 counts as one block launch (``fused_transformer_block.launches``), made
 through the custom op ``tdspa::fused_transformer_block`` (``kernels/ops.py``),
 which takes the layer's parameters and caches their flattened operands.
@@ -45,12 +48,42 @@ from torch.utils.weak import WeakIdKeyDictionary
 from tdspa_torch.kernels import build
 
 HEAD_DIMS = (32, 64, 96, 128)
-MAX_SEQ = 256  # all keys of an (item, head) stay in shared memory
+MAX_SEQ = 256  # all keys of an (item, head) in shared memory, their logits in registers
 STAGES = ("ln1", "qkv", "attention", "out_proj", "ln2", "mlp_in", "mlp_out")  # one CUDA kernel each
 KERNELS_PER_CALL = len(STAGES)
 ALL_STAGES = (1 << KERNELS_PER_CALL) - 1
 NORM_EPS = 1e-6
 OPERANDS = ("g1", "wqkv_t", "sq", "sk", "wo_t", "bo", "g2", "w1_t", "b1", "w2_t", "b2")
+
+
+# csrc/block.cu's attention stage (block_attention_kernel): warpgroups of 64
+# query rows (three up to 192 keys and heads of 96, else two), 64-key tiles,
+# 32-column boxes of 64-byte rows.
+ATTENTION_CONSUMERS = 3
+KEY_TILE = 64
+SMEM_LIMIT = 232448  # an H100 block's dynamic shared memory
+
+
+def attention_plan(items: int, seq: int, heads: int, head_dim: int, sms: int) -> dict:
+    """How ``csrc/block.cu``'s attention stage divides one call.
+
+    Work items are (item, head), walked by ``grid`` persistent blocks; each
+    loads its q, k and v once (``kv_loads`` per work item) into one of
+    ``buffers`` buffers of ``smem_bytes`` in all. The ``query_slabs`` 64-row
+    slabs go to the ``warpgroups`` in turn (``slabs_per_warpgroup``), and
+    every row's ``key_tiles`` x 64 logits stay in registers.
+    """
+    key_tiles = -(-seq // KEY_TILE)
+    tile = head_dim // 32 * (KEY_TILE * key_tiles) * 64  # q, k or v: boxes x rows x 64 B
+    item = 3 * tile + 3 * 8  # the tiles and three mbarriers
+    buffers = 2 if 1024 + 2 * item <= SMEM_LIMIT else 1
+    warpgroups = ATTENTION_CONSUMERS if key_tiles <= 3 and head_dim <= 96 else 2
+    work = items * heads
+    slabs = key_tiles
+    return {"work": work, "grid": min(work, sms), "key_tiles": key_tiles, "query_slabs": slabs,
+            "warpgroups": warpgroups,
+            "slabs_per_warpgroup": [len(range(c, slabs, warpgroups)) for c in range(warpgroups)],
+            "kv_loads": 1, "buffers": buffers, "smem_bytes": 1024 + buffers * item}
 
 
 def kernel_takes(seq: int, width: int, heads: int, head_dim: int, mlp: int) -> bool:

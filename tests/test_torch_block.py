@@ -231,14 +231,80 @@ def test_stage_bits_cover_the_seven_launches():
 def test_qkv_gemm_tiles_hold_whole_heads_and_fit_shared_memory(head_dim):
     """The Q/K/V GEMM's N tile holds whole heads (its RMSNorm epilogue needs a
     head's row), is a wgmma width the source defines, and every GEMM
-    instantiation's shared memory fits an H100 block (232,448 bytes)."""
+    instantiation's shared memory fits an H100 block (232,448 bytes): the
+    cooperative Q/K/V GEMM, and the ping-pong ones (out-projection: bf16
+    residual, f32 y; MLP in: bf16 out; MLP out: f32 residual, f32 or bf16 out)."""
     src = (Path(kb.build.CSRC) / "block.cu").read_text()
     wide, narrow = map(int, re.search(r"BN = DH == 96 \? (\d+) : (\d+);", src).groups())
     bn = wide if head_dim == 96 else narrow
     assert bn % head_dim == 0 and bn <= 256
     sm90 = (Path(kb.build.CSRC) / "sm90.cuh").read_text()
     assert f"struct Wgmma<{bn}> {{" in sm90 and f"float (&d)[{bn // 2}]" in sm90
+    limit = int(re.search(r"SMEM_LIMIT = (\d+);", src).group(1))
+    assert limit == kb.SMEM_LIMIT == 232448
     stages = int(re.search(r"G_STAGES = (\d+);", src).group(1))
-    for width, out_bytes in ((bn, 2), (128, 4), (128, 2)):  # QKV; out-proj / MLP out; GELU
-        smem = 1024 + stages * (128 + width) * 128 + 2 * 64 * width * out_bytes + 2 * stages * 8
-        assert smem <= 232448, (width, out_bytes, smem)
+    assert 1024 + stages * (128 + bn) * 128 + 2 * 64 * bn * 2 + 2 * stages * 8 <= limit
+    # Ping-pong: a 4-stage ring of 128 x 64 (or 64 x 64) A and 128 x 64 B
+    # tiles, and an epilogue buffer of one 64-row half per consumer
+    # warpgroup: 32 KB for a residual or f32 out, 16 KB for GELU's bf16 out.
+    big, small = map(int, re.search(r"HALF = RESID \|\| !OUT_BF16 \? (\d+) : (\d+);",
+                                    src).groups())
+    assert (big, small) == (32768, 16384)
+    depth = int(re.search(r"static constexpr int STAGES = (\d+);", src).group(1))
+    assert 'BYTES = 1024 + static_cast<size_t>(STAGES) * (BM + BN) * 128 +\n' \
+           '                                  2 * static_cast<size_t>(HALF) + (2 * STAGES + 4)' in src
+    for rows in (128, 64):
+        for half in (big, small):
+            smem = 1024 + depth * (rows + 128) * 128 + 2 * half + (2 * depth + 4) * 8
+            assert depth >= 4 and smem <= limit, (rows, half, smem)
+    # The residual's boxes fit the half they land in: f32 in four 8 KB boxes
+    # from byte 0, bf16 in two from byte 16384.
+    assert 4 * 8192 <= big and 16384 + 2 * 8192 <= big
+
+
+@pytest.mark.parametrize("head_dim", kb.HEAD_DIMS)
+def test_attention_stage_fits_shared_memory_at_max_seq(head_dim):
+    """At S = MAX_SEQ (256), the attention stage's q, k and v tiles of one
+    (item, head) (head_dim / 32 boxes of 32 columns, 256 rows of 64 bytes)
+    and their barriers fit an H100 block's 232,448 bytes; two buffers where
+    two fit. ``attention_plan`` follows the source's layout."""
+    src = (Path(kb.build.CSRC) / "block.cu").read_text()
+    assert "static constexpr int ROWS = 64 * KT;" in src
+    assert "static constexpr int BOXB = ROWS * 64;" in src
+    assert "static constexpr int TILE = NBX * BOXB;" in src
+    assert "static constexpr int ITEM = 3 * TILE;" in src
+    assert "static constexpr int BARS = 3;" in src
+    assert "BUFS = 1024 + 2 * (ITEM + BARS * 8) <= SMEM_LIMIT ? 2 : 1;" in src
+    assert "BYTES = 1024 + static_cast<size_t>(BUFS) * (ITEM + BARS * 8);" in src
+    assert f"A_CONSUMERS = {kb.ATTENTION_CONSUMERS};" in src
+    assert "return KT <= 3 && NBX <= 3 ? A_CONSUMERS : 2;" in src
+    plan = kb.attention_plan(1, kb.MAX_SEQ, 1, head_dim, 132)
+    item = 3 * (head_dim // 32) * 256 * 64 + 3 * 8
+    assert plan["buffers"] == (2 if 1024 + 2 * item <= 232448 else 1)
+    assert plan["smem_bytes"] == 1024 + plan["buffers"] * item <= 232448
+    assert plan["buffers"] == {32: 2, 64: 2, 96: 1, 128: 1}[head_dim]
+
+
+@pytest.mark.parametrize("seq", [1, 129, 192, 193, 256])
+def test_attention_stage_launch_arithmetic(seq):
+    """One work item per (item, head), its q, k and v loaded once; 64-row
+    query slabs dealt to the warpgroups in turn (three up to S = 192 with heads
+    of 96; two beyond, two slabs each), ceil(S / 64) key tiles in one pass; a
+    persistent grid of at most one block per SM. The source dispatches on the
+    same key-tile count and deals the slabs the same way."""
+    src = (Path(kb.build.CSRC) / "block.cu").read_text()
+    assert "switch ((S + 63) / 64) {" in src
+    assert "const int slabs = (S + 63) / 64;" in src
+    assert "for (int slab = c; slab < slabs; slab += WGS) {" in src
+    assert "const int work = items * H;" in src
+    assert "const int grid = work < sms ? work : sms;" in src
+    tiles = {1: 1, 129: 3, 192: 3, 193: 4, 256: 4}[seq]
+    deal = {1: [1, 0, 0], 129: [1, 1, 1], 192: [1, 1, 1], 193: [2, 2], 256: [2, 2]}[seq]
+    for items, heads, sms in ((512, 8, 132), (1, 8, 132), (3, 2, 132)):
+        plan = kb.attention_plan(items, seq, heads, 96, sms)
+        assert plan["work"] == items * heads and plan["grid"] == min(items * heads, sms)
+        assert plan["key_tiles"] == plan["query_slabs"] == tiles
+        assert plan["slabs_per_warpgroup"] == deal and sum(deal) * 64 >= seq > (sum(deal) - 1) * 64
+        assert plan["warpgroups"] == len(deal)
+        assert plan["kv_loads"] == 1
+        assert plan["buffers"] == (2 if seq <= 192 else 1)

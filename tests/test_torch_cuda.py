@@ -529,13 +529,16 @@ def test_quant_kernel_equals_plain_version(cuda_device, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4, 129, 1280, 8, 96, 1536), (1, 128, 1152, 8, 96, 2048),
                                    (3, 9, 64, 2, 32, 96), (2, 256, 256, 2, 128, 64),
-                                   (5, 17, 128, 4, 64, 40), (2, 33, 200, 3, 96, 328)])
+                                   (5, 17, 128, 4, 64, 40), (2, 33, 200, 3, 96, 328),
+                                   (3, 193, 384, 4, 96, 512), (7, 1, 128, 2, 64, 64)])
 def test_block_kernel_matches_plain_version(cuda_device, shape):
     """Tolerance as in chip_smoke.py: 2e-2 abs (a bf16 rounding of an
     intermediate may land one step away; f32 summation order). The readout
     and decompress layers, a bf16 x, and widths that are not multiples of
     the GEMM's N tile: C = 200, MLP = 40 and 328, and 3 heads of 96 (864
-    Q/K/V columns: a last tile of 96 in a 192-wide tile)."""
+    Q/K/V columns: a last tile of 96 in a 192-wide tile). The attention
+    stage's edges: S = 193 (a fourth 64-row query slab on the first consumer
+    warpgroup, one buffer), S = 256 with heads of 128, and S = 1."""
     from tdspa_torch.core.attention import ParallelTransformerBlock, reset_parameters
     from tdspa_torch.kernels.block import _operands, block_reference, fused_transformer_block
 
