@@ -191,10 +191,10 @@ place of the phases, the one-off measurement of the matcher's whole recipe
 OUT.npz --seed N --natural_frac=0`` for each seed, 0 by default) scored on
 the noisy scene beside the shipped matcher, then the seeds' spread.
 
-With ``--profile``, one more run of each full-width pipeline's stage (and
-of each feature extractor, and one train step of each model) under
-``torch.profiler`` reports the device's busy time and the kernels that take
-it.
+Where the card's time goes is not read here: the CLIs' ``--profile_dir``
+writes a ``torch.profiler`` trace that holds the port's ``tdspa.*`` spans,
+and ``python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s>
+--trace 1`` reduces one of the benchmark's cells in memory.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on its
 main-path run and its totals per forward or video, and as the last line
@@ -1287,12 +1287,11 @@ def _timed_call(fn, *args):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def phase_features(scene, profile: bool = False) -> dict:
+def phase_features(scene) -> dict:
     """DINOv2 features and video depth at full width (ViT-B, seeded weights)
     on the clean scene's whole video: the ViT kernel's launches, output
     shapes, depth finite and >= 0, and agreement with the same extractor on
-    plain attention; stage times (the second of two calls). With
-    ``profile``, one more call of each under the profiler."""
+    plain attention; stage times (the second of two calls)."""
     video = torch.from_numpy(scene["video"]).cuda()
     dino = DinoFeatureExtractor(device="cuda", seed=SEED)
     dino_plain = DinoFeatureExtractor(device="cuda", seed=SEED, fused_attention=False)
@@ -1325,8 +1324,6 @@ def phase_features(scene, profile: bool = False) -> dict:
             raise AssertionError(f"{name}: kernel and plain attention disagree: {row}")
         rows[name] = row
         del out, want
-        if profile:
-            phase_profile(name, lambda: kernel(video))
     del dino, dino_plain, depth, depth_plain, video
     torch.cuda.empty_cache()
     return rows
@@ -2239,7 +2236,7 @@ def phase_bilinear_kernel(providers) -> dict:
     return totals
 
 
-def phase_serving(path, knob: str, profile: bool = False) -> dict:
+def phase_serving(path, knob: str) -> dict:
     """``InferencePipeline(**{knob: True})`` with phase ``pipeline``'s seeded
     providers, video, seed and weights: launches per forward, output, and
     agreement with that phase's bf16 pipeline."""
@@ -2294,67 +2291,9 @@ def phase_serving(path, knob: str, profile: bool = False) -> dict:
     if not ok:
         raise AssertionError(f"{phase} disagrees with the bf16 pipeline: {agreement}, "
                              f"rel L2 {tracks_rel_l2}, visibility agreement {vis_agree}")
-    if profile:
-        profile_pipeline(pipe, path["video"], "fused_tail")
     del pipe, results
     torch.cuda.empty_cache()
     return {"launches": launches, "fused_tail_median_ms": statistics.median(tails[1:])}
-
-
-KERNEL_CLASSES = (  # (class, substrings of a device kernel's name), first match wins
-    ("vit_attention", ("vit_attention_kernel",)),
-    ("attention", ("masked_attention_kernel", "merge_chunks_kernel")),
-    ("quant_matmul", ("int8_gemm_kernel", "quantize_rows_kernel")),
-    ("block", ("layernorm_kernel", "gemm_kernel<", "gemm_pp_kernel<", "block_attention_kernel<")),
-    ("bilinear", ("bilinear_kernel",)),
-    ("lk", ("lk_track_kernel",)),
-    ("matcher_costs", ("cost_patches_kernel",)),
-    ("conv", ("conv", "implicit", "winograd", "cudnn", "fprop", "dgrad")),
-    ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "Kernel2")),
-    ("gather", ("index", "gather")),
-    ("reduce", ("reduce_kernel",)),
-    ("memcpy", ("Memcpy", "Memset")),
-    ("elementwise", ("elementwise", "copy_kernel", "CatArray", "softmax")),
-)
-
-
-def phase_profile(stage: str, run, wall_ms=None, top: int = 15) -> None:
-    """One more run of a stage under torch.profiler (``--profile`` only):
-    device time by kernel class, the kernels that take most of it, and the
-    stage's device busy share (its kernel time over its wall time; the
-    profiler's host overhead lowers it). ``wall_ms`` reads the stage's own
-    timing after the run (a pipeline's ``timings``); without it the wall
-    time is the host clock around ``run``, synchronised."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        clock_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and not e.key.startswith("Activity Buffer")]
-    device.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    classes: dict[str, float] = {}
-    for e in device:
-        name = next((c for c, keys in KERNEL_CLASSES if any(k in e.key for k in keys)), "other")
-        classes[name] = classes.get(name, 0.0) + e.self_device_time_total / 1e3
-    wall = wall_ms() if wall_ms is not None else clock_ms
-    kernel_ms = sum(v for k, v in classes.items() if k != "memcpy")
-    emit("profile", stage=stage, wall_ms=wall, kernel_ms=kernel_ms, by_class_ms=classes,
-         device_busy_share=kernel_ms / wall,
-         top_kernels=[{"name": e.key[:100], "calls": e.count,
-                       "device_ms": e.self_device_time_total / 1e3} for e in device[:top]])
-
-
-def profile_pipeline(pipe, video, stage: str) -> None:
-    """``fused_tail``: a whole ``run_on_frames`` with given front ends, whose
-    other stages launch no kernels (the video upload is a copy);
-    ``upload_tracking_features``: the streamed upload, tracking and the
-    streamed features alone."""
-    run = pipe.run_on_frames if stage == "fused_tail" else pipe._streamed_upload_and_tracking
-    phase_profile(stage, lambda: run(video), wall_ms=lambda: pipe.timings[stage] * 1e3)
 
 
 def event_ms(fn, iters: int) -> float:
@@ -2631,7 +2570,7 @@ def _rel_l2(a: dict, b: dict) -> float:
     return math.sqrt(num / den) if den else (0.0 if num == 0 else math.inf)
 
 
-def phase_train(model_type: str, profile: bool = False) -> dict:
+def phase_train(model_type: str) -> dict:
     """``train()`` at full width (bf16 compute, fused attention, encoder and
     decoder chunks of 256, T = 150, 2048 support and 2048 query tracks,
     batch 2, 3 steps) with a checkpoint per step; the resume from step 2;
@@ -2779,8 +2718,6 @@ def phase_train(model_type: str, profile: bool = False) -> dict:
         "attention_shapes": costs["shapes"],
     }
     emit(f"train_{'3d' if three_d else '2d'}_breakdown", **breakdown)
-    if profile:
-        phase_profile(f"train_{'3d' if three_d else '2d'}_step", lambda: step(state, batch))
     row = dict(
         model_type=model_type, params=params, batch=TRAIN_BATCH, support=TRAIN_SUPPORT,
         queries=TRAIN_QUERIES, frames=NUM_FRAMES, chunk=TRAIN_CHUNK,
@@ -3353,7 +3290,7 @@ def _mesh_launches(counter: str, mesh: dict) -> dict:
     return rows
 
 
-def main(argv: list[str]) -> int:
+def main() -> int:
     info = phase_device()
     phase_build()
     totals = phase_kernel()
@@ -3361,11 +3298,9 @@ def main(argv: list[str]) -> int:
     quant_totals = phase_quant_kernel()
     block_totals = phase_block_kernel(totals["shape_ms"])
     path = phase_pipeline()
-    if "--profile" in argv:
-        profile_pipeline(path["pipeline"], path["video"], "fused_tail")
     bilinear_totals = phase_bilinear_kernel(path["providers"])
-    quantized = phase_serving(path, "quantize", profile="--profile" in argv)
-    fused_block = phase_serving(path, "fused_block", profile="--profile" in argv)
+    quantized = phase_serving(path, "quantize")
+    fused_block = phase_serving(path, "fused_block")
     export_dir = tempfile.TemporaryDirectory()
     exported = phase_export(path, export_dir.name)
     phase_debug_nans(path)
@@ -3377,14 +3312,10 @@ def main(argv: list[str]) -> int:
     phase_tracking(scenes)
     matcher_train = phase_matcher_train(scenes["noisy"])
     tracked = phase_pipeline_tracked(scenes)
-    if "--profile" in argv:
-        profile_pipeline(tracked["pipeline"], tracked["video"], "upload_tracking_features")
     del tracked["pipeline"]
     torch.cuda.empty_cache()
-    phase_features(scenes["clean"], profile="--profile" in argv)
+    phase_features(scenes["clean"])
     full = phase_pipeline_full(scenes["clean"])
-    if "--profile" in argv:
-        profile_pipeline(full["pipeline"], scenes["clean"]["video"], "upload_tracking_features")
     tier_rows = phase_tracking_tiers()
     realism = phase_realism(full, export_dir.name)
     phase_visualize(realism["viz_path"])
@@ -3400,9 +3331,9 @@ def main(argv: list[str]) -> int:
     del trajan["model"], trajan["batch"], trajan["out"]
     torch.cuda.empty_cache()
     backward = phase_attention_backward()
-    train_3d = phase_train("3dspa", profile="--profile" in argv)
+    train_3d = phase_train("3dspa")
     torch.cuda.empty_cache()
-    train_2d = phase_train("trajan", profile="--profile" in argv)
+    train_2d = phase_train("trajan")
     torch.cuda.empty_cache()
     phase_train_cli()
     mesh = phase_mesh(train_3d.pop("batch"))
@@ -3627,4 +3558,4 @@ if __name__ == "__main__":
         seeds = sys.argv[at + 2] if len(sys.argv) > at + 2 else "0"
         matcher_recipe(sys.argv[at + 1], [int(x) for x in seeds.split(",")])
         sys.exit(0)
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

@@ -33,7 +33,6 @@ from __future__ import annotations
 import functools
 import logging
 import os
-import time
 
 import numpy as np
 import torch
@@ -54,7 +53,8 @@ from tdspa_torch.ops.geometry import (
     sample_dino_features_for_tracks,
 )
 from tdspa_torch.parallel.mesh import gather, world_group
-from tdspa_torch.utils.device import resolve_device, synchronize
+from tdspa_torch.utils.device import resolve_device
+from tdspa_torch.utils.profiling import span, stage_timer
 
 logger = logging.getLogger(__name__)
 
@@ -73,30 +73,36 @@ def fused_tail(
     use_dino: bool = True,
     use_depth: bool = True,
 ):
-    """Lift + sample + split + autoencode; returns (predictions, batch, tracks_3d)."""
-    num_frames = tracks_2d.shape[1]
-    if use_depth and depth_maps is not None:
-        tracks_3d = lift_2d_to_3d(tracks_2d, depth_maps)
-    else:
-        tracks_3d = torch.cat([tracks_2d, torch.ones_like(tracks_2d[..., :1])], dim=-1)
-    dino_feats = (
-        sample_dino_features_for_tracks(
-            dino_grid, tracks_2d, (num_frames,) + tuple(video_hw) + (3,)
-        )
-        if use_dino and dino_grid is not None
-        else None
-    )
-    depth_feats = (
-        sample_depth_features_for_tracks(depth_maps, tracks_2d)
-        if use_depth and depth_maps is not None
-        else None
-    )
-    batch = split_and_sample_queries(
-        perm, ts, tracks_3d, visible, num_support=num_support,
-        num_queries=num_queries, num_frames=num_frames,
-        dino_features=dino_feats, depth_features=depth_feats,
-    )
-    return model(batch), batch, tracks_3d
+    """Lift + sample + split + autoencode; returns (predictions, batch, tracks_3d).
+    Spans: ``tdspa.tail`` holds ``tdspa.tail.{lift,sample,split,model}``."""
+    with span("tdspa.tail"):
+        num_frames = tracks_2d.shape[1]
+        with span("tdspa.tail.lift"):
+            if use_depth and depth_maps is not None:
+                tracks_3d = lift_2d_to_3d(tracks_2d, depth_maps)
+            else:
+                tracks_3d = torch.cat([tracks_2d, torch.ones_like(tracks_2d[..., :1])], dim=-1)
+        with span("tdspa.tail.sample"):
+            dino_feats = (
+                sample_dino_features_for_tracks(
+                    dino_grid, tracks_2d, (num_frames,) + tuple(video_hw) + (3,)
+                )
+                if use_dino and dino_grid is not None
+                else None
+            )
+            depth_feats = (
+                sample_depth_features_for_tracks(depth_maps, tracks_2d)
+                if use_depth and depth_maps is not None
+                else None
+            )
+        with span("tdspa.tail.split"):
+            batch = split_and_sample_queries(
+                perm, ts, tracks_3d, visible, num_support=num_support,
+                num_queries=num_queries, num_frames=num_frames,
+                dino_features=dino_feats, depth_features=depth_feats,
+            )
+        with span("tdspa.tail.model"):
+            return model(batch), batch, tracks_3d
 
 
 SUPPORT_KEYS = ("support_tracks", "support_tracks_visible")
@@ -128,44 +134,45 @@ def mesh_fused_tail(
     bilinear sample depends on its point alone), encodes those tracks, and
     decodes its slice of the queries against latents computed from every
     rank's readout tokens. Predictions and features are gathered back in
-    rank order.
+    rank order. The call is the span ``tdspa.tail``.
     """
-    count = dist.get_world_size(group)
-    num_frames = tracks_2d.shape[1]
-    device = tracks_2d.device
+    with span("tdspa.tail"):
+        count = dist.get_world_size(group)
+        num_frames = tracks_2d.shape[1]
+        device = tracks_2d.device
 
-    def rows(total: int) -> torch.Tensor:  # this rank's contiguous positions
-        part = total // count
-        return torch.arange(part, device=device) + shard * part
+        def rows(total: int) -> torch.Tensor:  # this rank's contiguous positions
+            part = total // count
+            return torch.arange(part, device=device) + shard * part
 
-    mine = tracks_2d[rows(tracks_2d.shape[0])]
-    if use_depth and depth_maps is not None:
-        local_3d = lift_2d_to_3d(mine, depth_maps)
-    else:
-        local_3d = torch.cat([mine, torch.ones_like(mine[..., :1])], dim=-1)
-    tracks_3d = gather(local_3d, group)
-    batch = split_and_sample_queries(perm, ts, tracks_3d, visible, num_support=num_support,
-                                     num_queries=num_queries, num_frames=num_frames)
-    support_rows, query_rows = rows(num_support), rows(num_queries)
-    local = {k: batch[k][:, support_rows] for k in SUPPORT_KEYS}
-    local.update({k: batch[k][:, query_rows] for k in QUERY_KEYS})
-    local["boundary_frame"] = batch["boundary_frame"]
-    support_2d = tracks_2d[perm[support_rows]]
-    if use_dino and dino_grid is not None:
-        local["dino_features"] = sample_dino_features_for_tracks(
-            dino_grid, support_2d, (num_frames,) + tuple(video_hw) + (3,))[None]
-    if use_depth and depth_maps is not None:
-        local["depth_features"] = sample_depth_features_for_tracks(depth_maps, support_2d)[None]
-    preds = model(local, gather_tokens=lambda tokens: gather(tokens, group, dim=1))
-    predictions = TrackAutoEncoderResults(
-        tracks=gather(preds.tracks, group, dim=1),
-        visible_logits=gather(preds.visible_logits, group, dim=1),
-        certain_logits=gather(preds.certain_logits, group, dim=1),
-    )
-    for key in ("dino_features", "depth_features"):
-        if key in local:
-            batch[key] = gather(local[key], group, dim=1)
-    return predictions, batch, tracks_3d
+        mine = tracks_2d[rows(tracks_2d.shape[0])]
+        if use_depth and depth_maps is not None:
+            local_3d = lift_2d_to_3d(mine, depth_maps)
+        else:
+            local_3d = torch.cat([mine, torch.ones_like(mine[..., :1])], dim=-1)
+        tracks_3d = gather(local_3d, group)
+        batch = split_and_sample_queries(perm, ts, tracks_3d, visible, num_support=num_support,
+                                         num_queries=num_queries, num_frames=num_frames)
+        support_rows, query_rows = rows(num_support), rows(num_queries)
+        local = {k: batch[k][:, support_rows] for k in SUPPORT_KEYS}
+        local.update({k: batch[k][:, query_rows] for k in QUERY_KEYS})
+        local["boundary_frame"] = batch["boundary_frame"]
+        support_2d = tracks_2d[perm[support_rows]]
+        if use_dino and dino_grid is not None:
+            local["dino_features"] = sample_dino_features_for_tracks(
+                dino_grid, support_2d, (num_frames,) + tuple(video_hw) + (3,))[None]
+        if use_depth and depth_maps is not None:
+            local["depth_features"] = sample_depth_features_for_tracks(depth_maps, support_2d)[None]
+        preds = model(local, gather_tokens=lambda tokens: gather(tokens, group, dim=1))
+        predictions = TrackAutoEncoderResults(
+            tracks=gather(preds.tracks, group, dim=1),
+            visible_logits=gather(preds.visible_logits, group, dim=1),
+            certain_logits=gather(preds.certain_logits, group, dim=1),
+        )
+        for key in ("dino_features", "depth_features"):
+            if key in local:
+                batch[key] = gather(local[key], group, dim=1)
+        return predictions, batch, tracks_3d
 
 
 def make_mesh_tail(mesh, model, num_support: int, num_queries: int, video_hw: tuple,
@@ -369,12 +376,10 @@ class InferencePipeline:
         return perm.to(self.device), ts.to(self.device)
 
     def _timed(self, name, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        synchronize(self.device)
-        self.timings[name] = time.perf_counter() - t0
-        logger.info("%s: %.3fs", name, self.timings[name])
-        return out
+        """``fn(*args)`` as stage ``name`` of this run's ``timings`` and as
+        the span ``tdspa.video.<name>``."""
+        with stage_timer(name, self.timings):
+            return fn(*args)
 
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -394,7 +399,9 @@ class InferencePipeline:
 
         Returns (track_data, the device video or None, DINO grid or None,
         depth maps or None): the whole video only where a provider that is
-        not streamed needs it, a feature only where it was streamed.
+        not streamed needs it, a feature only where it was streamed. Spans:
+        ``tdspa.video.upload`` (host encode and copy), ``tdspa.video.dino``
+        and ``tdspa.video.depth`` per chunk, ``tdspa.video.track`` once.
         """
         from tdspa_torch.ops.yuv import rgb_to_yuv420, yuv420_to_rgb
 
@@ -408,33 +415,41 @@ class InferencePipeline:
             and isinstance(self.depth_provider, VideoDepthEstimator)
             and chunk % self.depth_provider.frame_chunk == 0
         )
-        t0 = time.perf_counter()
-        chunks = []
-        for i in range(0, t, chunk):
-            if self.upload_yuv420 and h % 2 == 0 and w % 2 == 0:
-                planes = rgb_to_yuv420(video[i : i + chunk])
-                chunks.append(yuv420_to_rgb(*(self._upload(p) for p in planes)))
-            else:
-                chunks.append(self._upload(video[i : i + chunk]))
-        track_data = self.track_provider.track_chunks(chunks)
-        dino_parts = [self.dino_extractor(c) for c in chunks] if stream_dino else None
-        depth_parts = [self.depth_provider(c) for c in chunks] if stream_depth else None
-        # The whole video only for feature providers that are not streamed.
-        need_full = (self.use_dino and not stream_dino) or (self.use_depth and not stream_depth)
-        video_dev = torch.cat(chunks, dim=0) if need_full else None
-        dino_grid = torch.cat(dino_parts, dim=0) if dino_parts is not None else None
-        depth_maps = torch.cat(depth_parts, dim=0) if depth_parts is not None else None
-        # One queue on the device: the sync waits for the upload, the tracking
-        # and every chunk's features, so none of them leaks into the tail.
-        synchronize(self.device)
-        self.timings["upload_tracking_features"] = time.perf_counter() - t0
-        logger.info("upload+tracking%s%s (streamed): %.3fs", "+dino" if stream_dino else "",
-                    "+depth" if stream_depth else "", self.timings["upload_tracking_features"])
+        # One queue on the device: the stage's closing sync waits for the
+        # upload, the tracking and every chunk's features, so none of them
+        # leaks into the tail.
+        with stage_timer("upload_tracking_features", self.timings):
+            chunks = []
+            for i in range(0, t, chunk):
+                with span("tdspa.video.upload"):
+                    if self.upload_yuv420 and h % 2 == 0 and w % 2 == 0:
+                        planes = rgb_to_yuv420(video[i : i + chunk])
+                        chunks.append(yuv420_to_rgb(*(self._upload(p) for p in planes)))
+                    else:
+                        chunks.append(self._upload(video[i : i + chunk]))
+            with span("tdspa.video.track"):
+                track_data = self.track_provider.track_chunks(chunks)
+            dino_parts = [self._spanned("tdspa.video.dino", self.dino_extractor, c)
+                          for c in chunks] if stream_dino else None
+            depth_parts = [self._spanned("tdspa.video.depth", self.depth_provider, c)
+                           for c in chunks] if stream_depth else None
+            # The whole video only for feature providers that are not streamed.
+            need_full = (self.use_dino and not stream_dino) or (self.use_depth and not stream_depth)
+            video_dev = torch.cat(chunks, dim=0) if need_full else None
+            dino_grid = torch.cat(dino_parts, dim=0) if dino_parts is not None else None
+            depth_maps = torch.cat(depth_parts, dim=0) if depth_parts is not None else None
         return track_data, video_dev, dino_grid, depth_maps
+
+    @staticmethod
+    def _spanned(name, fn, *args):
+        with span(name):
+            return fn(*args)
 
     @torch.inference_mode()
     def run_on_frames(self, video: np.ndarray, fps: float = 30.0) -> dict:
-        """Full pipeline on an in-memory [T H W 3] uint8 video."""
+        """Full pipeline on an in-memory [T H W 3] uint8 video; ``timings``
+        holds this run's stages alone."""
+        self.timings = {}
         t, h, w = video.shape[:3]
         wants_dev = getattr(self.track_provider, "prefers_device_input", None)
         on_device_tracker = bool(wants_dev and wants_dev(video.shape))
@@ -494,30 +509,32 @@ class InferencePipeline:
                        use_depth: bool):
         """``fused_tail`` through the exported artifact, after a check of its
         manifest against this pipeline's configuration (JAX runs the
-        artifact's own split and shapes without one)."""
-        from tdspa_torch.infer.export import load_exported, read_manifest, tail_config
+        artifact's own split and shapes without one). The call is the span
+        ``tdspa.tail``."""
+        with span("tdspa.tail"):
+            from tdspa_torch.infer.export import load_exported, read_manifest, tail_config
 
-        manifest = read_manifest(self.tail_artifact)
-        want = tail_config(
-            self.model, num_tracks=tracks_2d.shape[0], num_frames=tracks_2d.shape[1],
-            video_hw=video_hw, num_support=num_support, num_queries=num_queries,
-            use_dino=use_dino, use_depth=use_depth, device=self.device.type,
-        )
-        wrong = {k: (manifest.get(k), v) for k, v in want.items() if manifest.get(k) != v}
-        if wrong:
-            raise ValueError(f"tail artifact {self.tail_artifact} was exported for another "
-                             f"configuration; (manifest, pipeline) differ at {wrong}")
-        if self._artifact is None:
-            self._artifact = load_exported(self.tail_artifact)
-        features = [x for x, used in ((dino_grid, use_dino), (depth_maps, use_depth)) if used]
-        out = self._artifact.call(self._artifact_params, perm, ts, tracks_2d,
-                                  visible.to(torch.float32), *features)
-        predictions = TrackAutoEncoderResults(
-            tracks=out["tracks"], visible_logits=out["visible_logits"],
-            certain_logits=out["certain_logits"],
-        )
-        batch = {"support_tracks": out["support_tracks"], "query_tracks": out["query_tracks"]}
-        return predictions, batch, out["tracks_3d"]
+            manifest = read_manifest(self.tail_artifact)
+            want = tail_config(
+                self.model, num_tracks=tracks_2d.shape[0], num_frames=tracks_2d.shape[1],
+                video_hw=video_hw, num_support=num_support, num_queries=num_queries,
+                use_dino=use_dino, use_depth=use_depth, device=self.device.type,
+            )
+            wrong = {k: (manifest.get(k), v) for k, v in want.items() if manifest.get(k) != v}
+            if wrong:
+                raise ValueError(f"tail artifact {self.tail_artifact} was exported for another "
+                                 f"configuration; (manifest, pipeline) differ at {wrong}")
+            if self._artifact is None:
+                self._artifact = load_exported(self.tail_artifact)
+            features = [x for x, used in ((dino_grid, use_dino), (depth_maps, use_depth)) if used]
+            out = self._artifact.call(self._artifact_params, perm, ts, tracks_2d,
+                                      visible.to(torch.float32), *features)
+            predictions = TrackAutoEncoderResults(
+                tracks=out["tracks"], visible_logits=out["visible_logits"],
+                certain_logits=out["certain_logits"],
+            )
+            batch = {"support_tracks": out["support_tracks"], "query_tracks": out["query_tracks"]}
+            return predictions, batch, out["tracks_3d"]
 
     def run(self, video_path: str) -> dict:
         """Full pipeline on a video file: its first ``num_output_frames``

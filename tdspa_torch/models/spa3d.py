@@ -37,6 +37,7 @@ from tdspa_torch.models.trajan2d import (
     remat,
 )
 from tdspa_torch.utils.device import resolve_device
+from tdspa_torch.utils.profiling import span
 
 
 class TrackAutoEncoder3D(nn.Module):
@@ -156,15 +157,18 @@ class TrackAutoEncoder3D(nn.Module):
         return track_embeddings
 
     def encode_tracks(self, tracks, visible, restart, dino_features=None, depth_features=None):
-        """Per-track temporal transformer; the readout token's slot is the summary."""
-        track_embeddings = self.embed_track_pos_visible(
-            tracks, visible, dino_features=dino_features, depth_features=depth_features
-        )
-        readout_token = self.input_readout_token(track_embeddings.shape[:-2])
-        track_tokens = torch.cat([readout_token, track_embeddings], dim=-2)  # promotes
-        mask = readout_temporal_mask(visible, restart)
-        track_tokens = self.input_track_transformer(track_tokens, qq_mask=mask)
-        return track_tokens[..., 0, :]
+        """Per-track temporal transformer; the readout token's slot is the
+        summary. The span ``tdspa.model.encode_tracks``, in the backward's
+        recompute too."""
+        with span("tdspa.model.encode_tracks"):
+            track_embeddings = self.embed_track_pos_visible(
+                tracks, visible, dino_features=dino_features, depth_features=depth_features
+            )
+            readout_token = self.input_readout_token(track_embeddings.shape[:-2])
+            track_tokens = torch.cat([readout_token, track_embeddings], dim=-2)  # promotes
+            mask = readout_temporal_mask(visible, restart)
+            track_tokens = self.input_track_transformer(track_tokens, qq_mask=mask)
+            return track_tokens[..., 0, :]
 
     def encode(self, inputs, gather_tokens=None) -> torch.Tensor:  # -> float['B 128 96']
         """Latents of the support tracks; ``gather_tokens`` (a sharded
@@ -196,10 +200,11 @@ class TrackAutoEncoder3D(nn.Module):
             ], dim=-2)
         if gather_tokens is not None:
             support_track_tokens = gather_tokens(support_track_tokens)
-        latents = self.initializer((tracks.shape[0],))
-        latents = self.tracks_to_latents(latents, support_track_tokens)
-        # Latents leave in f32 whatever the compute dtype (1/128 grid).
-        return self.compressor(latents).float()
+        with span("tdspa.model.latents"):
+            latents = self.initializer((tracks.shape[0],))
+            latents = self.tracks_to_latents(latents, support_track_tokens)
+            # Latents leave in f32 whatever the compute dtype (1/128 grid).
+            return self.compressor(latents).float()
 
     # ------------------------------------------------------------------ #
     # Decoder

@@ -31,6 +31,7 @@ from tdspa_torch.models.containers import (
 )
 from tdspa_torch.utils import jax_prng
 from tdspa_torch.utils.device import resolve_device
+from tdspa_torch.utils.profiling import span
 
 
 def default_query_grid(batch_shape, num_coords: int = 2, grid_size: int = 32,
@@ -118,23 +119,25 @@ def chunked_decode(model, latents, inputs, dither_rows=None) -> TrackAutoEncoder
     """Both models' decoder: one ``decode`` over every query, or one per
     ``decoder_scan_chunk_size`` queries (the JAX ``nn.scan``), each with its
     context and itself rematerialised as in JAX; the chunks' outputs equal
-    the unchunked ones. ``dither_rows`` as in ``quantize_latents``."""
+    the unchunked ones. ``dither_rows`` as in ``quantize_latents``. Each
+    chunk, with its context, is the span ``tdspa.model.decode``."""
     h = model.decoder_scan_chunk_size
     decode = functools.partial(model.decode, dither_rows=dither_rows)
+
+    def decode_chunk(chunk_inputs):
+        with span("tdspa.model.decode"):
+            return remat(decode, latents, remat(model.get_decoder_context, chunk_inputs))
+
     if h is None:
-        return remat(decode, latents, remat(model.get_decoder_context, inputs))
+        return decode_chunk(inputs)
     query_points = inputs["query_points"]
     if query_points.shape[-2] % h:
         raise ValueError(
             f"decoder_scan_chunk_size={h} must divide the query count "
             f"{query_points.shape[-2]}"
         )
-    parts = [
-        remat(decode, latents, remat(
-            model.get_decoder_context, {**inputs, "query_points": query_points[..., i : i + h, :]}
-        ))
-        for i in range(0, query_points.shape[-2], h)
-    ]
+    parts = [decode_chunk({**inputs, "query_points": query_points[..., i : i + h, :]})
+             for i in range(0, query_points.shape[-2], h)]
     return TrackAutoEncoderResults(
         tracks=torch.cat([p.tracks for p in parts], dim=-3),
         visible_logits=torch.cat([p.visible_logits for p in parts], dim=-3),
@@ -241,12 +244,15 @@ class TrackAutoEncoder(nn.Module):
 
     def encode_tracks(self, tracks, visible, restart):
         """Per-track temporal transformer + visibility-weighted mean pooling;
-        invisible keys and keys at or past ``restart`` are masked."""
-        track_tokens = self.track_token_projection(self.embed_track_pos_visible(tracks, visible))
-        mask = track_temporal_mask(visible, restart)
-        track_tokens = self.input_track_transformer(track_tokens, qq_mask=mask)
-        vis = visible[..., 0].bool()[..., None].float()
-        return (track_tokens * vis).sum(-2) / torch.clamp(vis.sum(-2), min=1.0)
+        invisible keys and keys at or past ``restart`` are masked. The span
+        ``tdspa.model.encode_tracks``, in the backward's recompute too."""
+        with span("tdspa.model.encode_tracks"):
+            track_tokens = self.track_token_projection(
+                self.embed_track_pos_visible(tracks, visible))
+            mask = track_temporal_mask(visible, restart)
+            track_tokens = self.input_track_transformer(track_tokens, qq_mask=mask)
+            vis = visible[..., 0].bool()[..., None].float()
+            return (track_tokens * vis).sum(-2) / torch.clamp(vis.sum(-2), min=1.0)
 
     def encode(self, inputs, gather_tokens=None) -> torch.Tensor:  # -> float['B 128 64']
         """Latents of the support tracks; ``gather_tokens`` (a sharded
@@ -270,10 +276,11 @@ class TrackAutoEncoder(nn.Module):
             ], dim=-2)
         if gather_tokens is not None:
             support_track_tokens = gather_tokens(support_track_tokens)
-        latents = self.initializer((tracks.shape[0],))
-        latents = self.tracks_to_latents(latents, support_track_tokens)
-        # Latents leave in f32 whatever the compute dtype (1/128 grid).
-        return self.compressor(latents).float()
+        with span("tdspa.model.latents"):
+            latents = self.initializer((tracks.shape[0],))
+            latents = self.tracks_to_latents(latents, support_track_tokens)
+            # Latents leave in f32 whatever the compute dtype (1/128 grid).
+            return self.compressor(latents).float()
 
     # ------------------------------------------------------------------ #
     # Decoder

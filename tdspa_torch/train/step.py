@@ -17,6 +17,12 @@ gradients and the loss terms are then summed over every rank, so every rank
 applies the update of the global batch's loss, the single-device step's.
 Eager PyTorch traces nothing, so there is no retrace to guard against; a
 sharded step creates no process group.
+
+Spans (``utils/profiling.py::span``): a step is ``tdspa.train.step``,
+holding ``tdspa.train.forward`` (forward and loss), ``tdspa.train.backward``
+(``torch.autograd.grad``, the remats' recompute inside),
+``tdspa.train.optimizer`` (clip and AdamW) and, with a mesh,
+``tdspa.train.mesh_sum``.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from tdspa_torch.models import TrackAutoEncoder3D
 from tdspa_torch.parallel.mesh import mesh_sum
 from tdspa_torch.parallel.shardings import model_kwargs
 from tdspa_torch.train.losses import compute_loss_2d, compute_loss_3d
+from tdspa_torch.utils.profiling import span
 
 LOSS_KEYS = ("total_loss", "position_loss", "visible_loss")
 
@@ -44,7 +51,8 @@ def forward_and_loss(model, batch, mesh=None, visible_mass=None, params=None):
     kwargs = {}
     if mesh is not None:
         if visible_mass is None:
-            (visible_mass,) = mesh_sum([batch["query_tracks_visible"].float().sum()], mesh)
+            with span("tdspa.train.mesh_sum"):
+                (visible_mass,) = mesh_sum([batch["query_tracks_visible"].float().sum()], mesh)
         kwargs = model_kwargs(mesh, model, batch)
     predictions = (model(batch, **kwargs) if params is None
                    else functional_call(model, params, (batch,), kwargs))
@@ -56,8 +64,10 @@ def loss_and_grads(model, params: dict[str, torch.Tensor], batch, mesh=None,
     """(loss dict, gradients of the total loss w.r.t. ``params`` in their
     order); ``params`` must be ``model``'s own parameters. With a ``mesh``,
     this rank's shares (``forward_and_loss``), not yet summed over the mesh."""
-    _, loss_dict = forward_and_loss(model, batch, mesh, visible_mass)
-    grads = torch.autograd.grad(loss_dict["total_loss"], list(params.values()))
+    with span("tdspa.train.forward"):
+        _, loss_dict = forward_and_loss(model, batch, mesh, visible_mass)
+    with span("tdspa.train.backward"):
+        grads = torch.autograd.grad(loss_dict["total_loss"], list(params.values()))
     return loss_dict, list(grads)
 
 
@@ -67,8 +77,9 @@ def _global(losses: dict, mesh) -> dict:
 
 
 def _apply(state, optimizer, schedule, grads, losses):
-    opt_state = optimizer.update(grads, state.opt_state, state.params)
-    lr = schedule(state.step) if schedule is not None else 0.0
+    with span("tdspa.train.optimizer"):
+        opt_state = optimizer.update(grads, state.opt_state, state.params)
+        lr = schedule(state.step) if schedule is not None else 0.0
     metrics = {
         "train/loss": losses["total_loss"].detach(),
         "train/position_loss": losses["position_loss"].detach(),
@@ -84,10 +95,12 @@ def make_train_step(model, optimizer, schedule=None, mesh=None):
     rank's shard of the batch (module docstring)."""
 
     def step(state, batch):
-        losses, grads = loss_and_grads(model, state.params, batch, mesh)
-        if mesh is not None:
-            grads, losses = mesh_sum(grads, mesh), _global(losses, mesh)
-        return _apply(state, optimizer, schedule, grads, losses)
+        with span("tdspa.train.step"):
+            losses, grads = loss_and_grads(model, state.params, batch, mesh)
+            if mesh is not None:
+                with span("tdspa.train.mesh_sum"):
+                    grads, losses = mesh_sum(grads, mesh), _global(losses, mesh)
+            return _apply(state, optimizer, schedule, grads, losses)
 
     return step
 
@@ -115,14 +128,18 @@ def make_grad_accum_step(model, optimizer, schedule=None, num_microbatches: int 
                 f"batch size {b} must be a positive multiple of "
                 f"num_microbatches={m} for gradient accumulation"
             )
-        size = b // m
+        with span("tdspa.train.step"):
+            return accumulate(state, batch, b // m)
+
+    def accumulate(state, batch, size):
         grads_acc = None
         loss = pos = vis = den_total = 0.0
         for i in range(m):
             mb = {k: v[i * size : (i + 1) * size] for k, v in batch.items()}
             mass = mb["query_tracks_visible"].float().sum()
             if mesh is not None:
-                (mass,) = mesh_sum([mass], mesh)
+                with span("tdspa.train.mesh_sum"):
+                    (mass,) = mesh_sum([mass], mesh)
             ld, grads = loss_and_grads(model, state.params, mb, mesh, mass)
             den = torch.clamp(mass, min=1.0)
             weighted = torch._foreach_mul(grads, den)
@@ -136,8 +153,9 @@ def make_grad_accum_step(model, optimizer, schedule=None, num_microbatches: int 
             vis = vis + den * ld["visible_loss"].detach()
             den_total = den_total + mass
         if mesh is not None:
-            grads_acc = mesh_sum(grads_acc, mesh)
-            loss, pos, vis = mesh_sum([loss, pos, vis], mesh)
+            with span("tdspa.train.mesh_sum"):
+                grads_acc = mesh_sum(grads_acc, mesh)
+                loss, pos, vis = mesh_sum([loss, pos, vis], mesh)
         den_total = torch.clamp(den_total, min=1.0)
         torch._foreach_div_(grads_acc, den_total)
         losses = {"total_loss": loss / den_total, "position_loss": pos / den_total,

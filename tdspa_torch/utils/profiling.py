@@ -1,8 +1,12 @@
 """Tracing and timing hooks (port of ``tdspa/utils/profiling.py``).
 
+* ``span`` — a named range at a layer boundary, recorded only while a
+  ``torch.profiler`` records (the CLIs' ``--profile_dir``, the benchmark's
+  traced runs), on the device trace's clock; otherwise a shared context that
+  does nothing, behind one read of the profiler's enabled flag.
 * ``stage_timer`` — wall-clock a pipeline stage, synchronising the current
   CUDA device first so that queued device work is inside the stage;
-  accumulates into a dict.
+  accumulates into a dict; the stage is the span ``tdspa.video.<name>``.
 * ``profile_trace`` — ``torch.profiler`` scope writing a Chrome/Perfetto
   trace.
 * ``debug_nans`` — the NaN check of ``utils/debug.py`` for a scope.
@@ -21,8 +25,22 @@ import os
 import time
 
 import torch
+from torch.autograd import profiler as autograd_profiler
+from torch.profiler import record_function
 
 logger = logging.getLogger(__name__)
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records ``name`` as a range of the trace while a
+    ``torch.profiler`` records (on every thread, autograd's included), and
+    does nothing otherwise. The port's spans are named ``tdspa.<layer>...``;
+    no name holds a kernel's name."""
+    if autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _NO_SPAN
 
 
 def _synchronize() -> None:
@@ -32,12 +50,14 @@ def _synchronize() -> None:
 
 @contextlib.contextmanager
 def stage_timer(name: str, sink: dict | None = None):
-    """Time a stage: seconds from entry to exit, with the current CUDA device
-    synchronised at both ends where there is one; added to ``sink[name]``."""
+    """Time a stage of the pipeline: seconds from entry to exit, with the
+    current CUDA device synchronised at both ends where there is one; added
+    to ``sink[name]``. The stage is also the span ``tdspa.video.<name>``."""
     _synchronize()
     t0 = time.perf_counter()
-    yield
-    _synchronize()
+    with span(f"tdspa.video.{name}"):
+        yield
+        _synchronize()
     dt = time.perf_counter() - t0
     if sink is not None:
         sink[name] = sink.get(name, 0.0) + dt

@@ -12,6 +12,7 @@ tracks within 1e-3 px on >= 95 % of the pairs both mark visible).
 
 import functools
 import inspect
+import json
 
 import numpy as np
 import pytest
@@ -200,7 +201,9 @@ def test_infer_cli_writes_the_reference_outputs(clip, tmp_path, monkeypatch):
                       "query_tracks": (4, T, 3), "support_tracks": (8, T, 3)}
     info = (out_dir / "video_info.txt").read_text().splitlines()
     assert info == [f"FPS: {results['fps']}", f"Frames: {T}", "Query points: 4"]
-    assert list((tmp_path / "trace").glob("trace_*.json"))
+    (trace,) = (tmp_path / "trace").glob("trace_*.json")
+    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+    assert {"tdspa.video.fused_tail", "tdspa.tail", "tdspa.model.encode_tracks"} <= names
 
 
 def test_infer_cli_runs_an_exported_tail(clip, tmp_path, monkeypatch):
