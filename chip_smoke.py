@@ -184,6 +184,15 @@ and the script exits non-zero:
    their launches per call; ``export_mesh_tail``, saved, loaded and called
    through ``call_exported_mesh``, against the live mesh tail. The group is
    destroyed at the end, also on failure.
+30. norm_kernel (after phase 12): the row-norm kernels (``csrc/norm.cu``)
+   against their plain versions at the main paths' shapes: the tail
+   encoder's [309248, 384] f32 -> bf16 LayerNorm and its [2473984, 96] bf16
+   RMSNorm, the decoder's [66048, 1280]; TRAJAN training's f32 LayerNorm at
+   [1056768, 1024] and bf16 RMSNorm at [9895936, 64], forward and backward.
+   Each row: error, card ms, the plain chain's ms, the library's ms
+   (``F.layer_norm`` / ``F.rms_norm`` and a cast, timed only: the port never
+   calls them) and the bound (bytes over 3.35 TB/s: each operand read once,
+   each output written once).
 
 ``python3 chip_smoke.py --matcher_recipe OUT.npz [SEED,SEED,...]`` runs, in
 place of the phases, the one-off measurement of the matcher's whole recipe
@@ -260,6 +269,7 @@ from tdspa_torch.kernels.block import (
     launch_stages as block_launch_stages,
 )
 from tdspa_torch.kernels.matcher import cost_patches_multi, cost_patches_reference
+from tdspa_torch.kernels import norm as norm_lib
 from tdspa_torch.data.batch_prep import prepare_2d_batch, prepare_3d_batch
 from tdspa_torch.data.prefetch import to_device
 from tdspa_torch.data.providers import (
@@ -345,6 +355,8 @@ NUM_FRAMES, HEIGHT, WIDTH, GRID = 150, 512, 512, 64
 DINO_GRID = (36, 36, 768)  # the extractor's grid of a 512x512 frame (resized to 504 = 36 x 14)
 RUNS = 3
 FORWARD_LAUNCHES = 3 + 4 + 4 + 4 + 4  # encoder, latent self, latent cross, decompress, readout
+# One row norm a _Norm: 4 a layer (6 with cross-attention) + each stack's final one.
+FORWARD_NORM_LAUNCHES = (3 * 4 + 1) + (4 * 6 + 1) + (4 * 4 + 1) + (4 * 4 + 1)  # 72
 TAIL_BILINEAR_LAUNCHES = 3  # DINO features, the 2D->3D lift and the depth features
 # The int8 products of the quantised forward (batch 1, 2048 support tracks
 # of 150 frames + the readout token, 128 latents, 512 queries of 128 latents
@@ -901,12 +913,14 @@ def phase_pipeline() -> dict:
     params = sum(p.numel() for p in pipe.model.parameters())
     fused_masked_attention.launches = 0
     bilinear_kernel.launches = 0
+    norm_lib.row_norm.launches = 0
     tails, results = [], None
     for _ in range(RUNS):
         results = pipe.run_on_frames(video)
         tails.append(results["timings"]["fused_tail"] * 1e3)
     launches = fused_masked_attention.launches
     bilinear_launches = bilinear_kernel.launches
+    norm_launches = norm_lib.row_norm.launches
     preds = results["predictions"]
     shapes = {
         "tracks": list(preds.tracks.shape),
@@ -918,7 +932,7 @@ def phase_pipeline() -> dict:
     finite = bool(torch.isfinite(preds.tracks).all() and torch.isfinite(preds.visible_logits).all())
     emit("pipeline", params=params, runs=RUNS, launches=launches,
          launches_per_forward=launches / RUNS, bilinear_launches=bilinear_launches,
-         shapes=shapes, finite=finite,
+         norm_launches=norm_launches, shapes=shapes, finite=finite,
          fused_tail_ms=tails, fused_tail_median_ms=statistics.median(tails[1:]),
          timings_ms={k: v * 1e3 for k, v in results["timings"].items()},
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -929,11 +943,13 @@ def phase_pipeline() -> dict:
     }
     if shapes != expected or not finite:
         raise AssertionError(f"pipeline output wrong: {shapes} finite={finite}")
-    if launches != FORWARD_LAUNCHES * RUNS or bilinear_launches != TAIL_BILINEAR_LAUNCHES * RUNS:
+    if launches != FORWARD_LAUNCHES * RUNS or bilinear_launches != TAIL_BILINEAR_LAUNCHES * RUNS \
+            or norm_launches != FORWARD_NORM_LAUNCHES * RUNS:
         raise AssertionError(
-            f"attention kernel launched {launches} times and bilinear kernel "
-            f"{bilinear_launches} times in {RUNS} forwards, expected "
-            f"{FORWARD_LAUNCHES * RUNS} and {TAIL_BILINEAR_LAUNCHES * RUNS}"
+            f"attention kernel launched {launches} times, bilinear kernel "
+            f"{bilinear_launches} times and row-norm kernel {norm_launches} times in {RUNS} "
+            f"forwards, expected {FORWARD_LAUNCHES * RUNS}, {TAIL_BILINEAR_LAUNCHES * RUNS} and "
+            f"{FORWARD_NORM_LAUNCHES * RUNS}"
         )
 
     # Same weights, same split, plain attention (the kernel is off).
@@ -964,7 +980,8 @@ def phase_pipeline() -> dict:
     bad = {k: v for k, v in agreement.items() if not v["rel_err"] <= PIPELINE_RTOL}
     if bad:
         raise AssertionError(f"kernel and plain pipelines disagree: {bad}")
-    return {"launches": launches, "bilinear_launches": bilinear_launches, "pipeline": pipe,
+    return {"launches": launches, "bilinear_launches": bilinear_launches,
+            "norm_launches": norm_launches, "pipeline": pipe,
             "video": video, "providers": providers, "predictions": preds,
             "fused_tail_median_ms": statistics.median(tails[1:])}
 
@@ -2236,6 +2253,102 @@ def phase_bilinear_kernel(providers) -> dict:
     return totals
 
 
+# The row norms timed alone: (name, rows, width, x dtype, out dtype, centered,
+# backward). The tail's encoder (2048 x 151 tokens; 8 heads of 96) and
+# readout (512 x 129 tokens), TRAJAN's training decoder (4 x 2048 x 129
+# tokens, f32 out under autograd) and encoder heads (4 x 2048 x 151 x 8, 64).
+NORM_SHAPES = [
+    ("tail_encoder_ln", 309248, 384, torch.float32, torch.bfloat16, True, False),
+    ("tail_encoder_qk", 2473984, 96, torch.bfloat16, torch.bfloat16, False, False),
+    ("tail_readout_ln", 66048, 1280, torch.float32, torch.bfloat16, True, False),
+    ("train_decoder_ln", 1056768, 1024, torch.float32, torch.float32, True, True),
+    ("train_encoder_qk", 9895936, 64, torch.bfloat16, torch.bfloat16, False, True),
+]
+NORM_REL_ATOL = 1e-5  # of each row's largest value: f32 rounding in another order
+NORM_LIBRARY = ("torch.nn.functional.layer_norm(x, (W,), scale, None, 1e-6) (centered) or "
+                "rms_norm(x, (W,), scale, 1e-6) (RMS, scale in x's dtype), then .to(out); "
+                "backward: autograd.grad of that for x and scale")
+
+
+def _library_norm(x, scale, centered, out_dtype):
+    """The library's norm and cast, for timing beside the kernel (two-pass
+    variance where centered: not the port's arithmetic)."""
+    width = x.shape[-1]
+    if centered:
+        return torch.nn.functional.layer_norm(x, (width,), scale, None, 1e-6).to(out_dtype)
+    return torch.nn.functional.rms_norm(x, (width,), scale.to(x.dtype), 1e-6).to(out_dtype)
+
+
+def _row_rel_err(got, want) -> float:
+    """The largest error of a row over that row's largest value."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().amax(-1) / want.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def phase_norm_kernel() -> dict:
+    """``csrc/norm.cu`` forward (and backward where training runs it) at the
+    main paths' shapes against the plain chain, timed alone."""
+    rows_out = {}
+    for name, rows, width, x_dtype, out_dtype, centered, backward in NORM_SHAPES:
+        emit("norm_kernel", shape=name)
+        gen = torch.Generator(device="cuda").manual_seed(rows)
+        x = (torch.randn((rows, width), generator=gen, device="cuda") * 2 + 0.5).to(x_dtype)
+        scale = torch.rand(width, generator=gen, device="cuda") + 0.5
+        with torch.inference_mode():
+            got = norm_lib.row_norm(x, scale, centered, out_dtype)
+            want = norm_lib.row_norm_reference(x, scale, centered, out_dtype)
+            torch.cuda.synchronize()
+            # A bf16 output may round the other way: one ulp, 2**-7 of the value.
+            slack = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
+            err = _row_rel_err(got, want)
+            tol = NORM_REL_ATOL + slack
+            del got, want
+            ms = cuda_ms(lambda: norm_lib.row_norm(x, scale, centered, out_dtype), iters=20)
+            plain_ms = cuda_ms(
+                lambda: norm_lib.row_norm_reference(x, scale, centered, out_dtype), iters=3)
+            library_ms = cuda_ms(lambda: _library_norm(x, scale, centered, out_dtype), iters=20)
+        nbytes = rows * width * (x.element_size() + out_dtype.itemsize) + width * 4
+        row = dict(shape=[rows, width], x_dtype=str(x_dtype).removeprefix("torch."),
+                   out_dtype=str(out_dtype).removeprefix("torch."), centered=centered,
+                   plan=norm_lib.plan(width, x.element_size()), max_row_rel_err=err, tol=tol,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3)
+        row["roofline_share"] = row["bound_ms"] / ms
+        if backward:
+            dy = torch.randn(x.shape, generator=gen, device="cuda").to(out_dtype)
+            dx, dscale = norm_lib.row_norm_backward(x, scale, dy, centered)
+            want_dx, want_dscale = norm_lib.row_norm_backward_reference(x, scale, dy, centered)
+            torch.cuda.synchronize()
+            dx_slack = 2.0 ** -7 if x_dtype == torch.bfloat16 else 0.0
+            row["backward_dx_row_rel_err"] = _row_rel_err(dx, want_dx)
+            row["backward_dscale_rel_err"] = ((dscale - want_dscale).abs().max()
+                                              / want_dscale.abs().max()).item()
+            row["backward_tol"] = NORM_REL_ATOL + dx_slack
+            del dx, dscale, want_dx, want_dscale
+            row["backward_ms"] = cuda_ms(
+                lambda: norm_lib.row_norm_backward(x, scale, dy, centered), iters=10)
+            row["backward_plain_ms"] = cuda_ms(
+                lambda: norm_lib.row_norm_backward_reference(x, scale, dy, centered), iters=2)
+            xg, sg = x.detach().requires_grad_(), scale.detach().requires_grad_()
+            out = _library_norm(xg, sg, centered, out_dtype)
+            row["backward_library_ms"] = event_ms(  # autograd: no graph capture
+                lambda: torch.autograd.grad(out, (xg, sg), dy, retain_graph=True), iters=10)
+            del xg, sg, out
+            back_bytes = rows * width * (2 * x.element_size() + dy.element_size()) + 2 * width * 4
+            row["backward_bound_ms"] = back_bytes / PEAK_BYTES_PER_S * 1e3
+            row["backward_roofline_share"] = row["backward_bound_ms"] / row["backward_ms"]
+            del dy
+        emit("norm_kernel", **row)
+        bad = err > tol or (backward and (row["backward_dx_row_rel_err"] > row["backward_tol"]
+                                          or row["backward_dscale_rel_err"] > 1e-4))
+        if bad:
+            raise AssertionError(f"row-norm kernel disagrees with the plain chain: {name} {row}")
+        rows_out[name] = row
+        del x, scale
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def phase_serving(path, knob: str) -> dict:
     """``InferencePipeline(**{knob: True})`` with phase ``pipeline``'s seeded
     providers, video, seed and weights: launches per forward, output, and
@@ -3297,6 +3410,7 @@ def main() -> int:
     vit_totals = phase_vit_kernel()
     quant_totals = phase_quant_kernel()
     block_totals = phase_block_kernel(totals["shape_ms"])
+    norm_rows = phase_norm_kernel()
     path = phase_pipeline()
     bilinear_totals = phase_bilinear_kernel(path["providers"])
     quantized = phase_serving(path, "quantize")
@@ -3542,6 +3656,25 @@ def main() -> int:
             "video_entry": {k: v["bilinear"] for k, v in video_entry.items()},
             **_export_launches("bilinear", exported, export_entry),
             **_mesh_launches("bilinear", mesh)},
+    })
+    encoder_ln = norm_rows["tail_encoder_ln"]
+    kernels.append({
+        "name": "row_norm",
+        "route": "cuda",
+        "source": "tdspa_torch/csrc/norm.cu",
+        "replaces": None,
+        "launches": path["norm_launches"],
+        "max_row_rel_err": max(r["max_row_rel_err"] for r in norm_rows.values()),
+        "ms": encoder_ln["ms"],
+        "plain_ms": encoder_ln["plain_ms"],
+        "bound_ms": encoder_ln["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": encoder_ln["library_ms"],
+        "library": NORM_LIBRARY,
+        "by_shape": {name: {k: r[k] for k in r if k.endswith("ms") or k.endswith("share")}
+                     for name, r in norm_rows.items()},
+        "per": ("one LayerNorm of the tail's encoder, [309248, 384] f32 -> bf16; launches "
+                f"counted over {RUNS} pipeline runs"),
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,10 @@ Parameter names and layouts are the flax tree's (``DenseGeneral`` kernels
 ``[in, out]``), so ``tdspa_torch.infer.convert`` maps checkpoints by name.
 Numerics follow flax: a layer with ``dtype`` casts both its input and its
 f32 parameters to ``dtype``; norms take f32 statistics with eps 1e-6 and
-return ``dtype``; ``gelu`` is the tanh approximation.
+return ``dtype`` (a block's two pre-projection LayerNorms return the compute
+dtype at once where that rounds to the same bits, ``_norm_dtype``); ``gelu``
+is the tanh approximation. Each norm is one launch of ``csrc/norm.cu`` on
+CUDA tensors (``kernels/norm.py``).
 
 Two inference knobs, as in the JAX package: ``quantize`` swaps the
 projections and the MLP for the dynamic-int8 layers of ``core/quant.py``
@@ -33,9 +36,10 @@ import torch.nn.functional as F
 
 from tdspa_torch.kernels.attention import fused_attention_fn, fused_masked_attention
 from tdspa_torch.kernels.block import fused_transformer_block, kernel_takes
+from tdspa_torch.kernels.norm import row_norm
+from tdspa_torch.kernels.ops import records
 
 _FILL = torch.finfo(torch.float32).min
-NORM_EPS = 1e-6  # flax LayerNorm / RMSNorm default
 
 
 def lecun_normal_(param: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -77,7 +81,9 @@ def Dense(in_features: int, out_features: int, dtype, device) -> DenseGeneral:
 
 
 class _Norm(nn.Module):
-    """flax ``LayerNorm(use_bias=False)`` (``centered``) or ``RMSNorm``."""
+    """flax ``LayerNorm(use_bias=False)`` (``centered``) or ``RMSNorm``: one
+    launch of ``csrc/norm.cu`` on CUDA tensors (``kernels/norm.py``), the
+    eager chain on CPU tensors."""
 
     def __init__(self, width: int, centered: bool, dtype, device):
         super().__init__()
@@ -89,17 +95,10 @@ class _Norm(nn.Module):
         with torch.no_grad():
             self.scale.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        mean2 = (x32 * x32).mean(-1, keepdim=True)
-        if self.centered:  # flax's fast variance: E[x^2] - E[x]^2
-            mean = x32.mean(-1, keepdim=True)
-            var = torch.clamp(mean2 - mean * mean, min=0.0)
-            y = x32 - mean
-        else:
-            var, y = mean2, x32
-        mul = torch.rsqrt(var + NORM_EPS) * self.scale
-        return (y * mul).to(self.dtype)
+    def forward(self, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
+        """The norm in ``out_dtype`` (the module's dtype when None)."""
+        return row_norm(x, self.scale, self.centered,
+                        self.dtype if out_dtype is None else out_dtype)
 
 
 def LayerNorm(width, dtype, device) -> _Norm:
@@ -223,7 +222,7 @@ class ParallelTransformerBlock(nn.Module):
                  residual_dtype=torch.float32, quantize: bool = False,
                  fused_block: bool = False, device="cpu"):
         super().__init__()
-        self.residual_dtype = residual_dtype
+        self.dtype, self.residual_dtype = dtype, residual_dtype
         self.num_heads, self.head_dim, self.mlp_size = num_heads, qkv_size // num_heads, mlp_size
         self.quantize, self.fused_block = quantize, fused_block
         attn = dict(num_heads=num_heads, qk_size=qkv_size, dtype=dtype, use_fused=use_fused,
@@ -241,19 +240,32 @@ class ParallelTransformerBlock(nn.Module):
             self.MLP_in = Dense(width, mlp_size, dtype, device)
             self.MLP_out = Dense(mlp_size, width, dtype, device)
 
+    def _norm_dtype(self, queries):
+        """The dtype ``norm_q`` and ``norm_attn`` write. Their only readers are
+        projections that round to the compute dtype, so with an f32 residual
+        the norms write that dtype at once: the same bits, rounded once. Not
+        under ``quantize`` (the int8 layers quantise the f32 values) nor where
+        autograd records (the projections' gradients then add up in f32, as in
+        the JAX reference). None keeps the norms' own dtype."""
+        if self.residual_dtype != torch.float32 or self.quantize or records(
+                queries, self.norm_q.scale, self.norm_attn.scale):
+            return None
+        return self.dtype
+
     def forward(self, queries, inputs_kv=None, qq_mask=None, qk_mask=None):
         if self.fused_block and _fused_block_applicable(
             self, queries, inputs_kv, qq_mask, qk_mask
         ):
             return fused_transformer_block(queries, self, self.num_heads,
                                            out_dtype=self.residual_dtype)
-        normed_queries = self.norm_q(queries)
+        norm_dtype = self._norm_dtype(queries)
+        normed_queries = self.norm_q(queries, norm_dtype)
         attn_out = queries.to(self.residual_dtype) + self.self_att(
             normed_queries, normed_queries, qq_mask
         )
         if inputs_kv is not None:
             attn_out = attn_out + self.cross_att(normed_queries, inputs_kv, qk_mask)
-        h = F.gelu(self.MLP_in(self.norm_attn(attn_out)), approximate="tanh")
+        h = F.gelu(self.MLP_in(self.norm_attn(attn_out, norm_dtype)), approximate="tanh")
         return attn_out + self.MLP_out(h).to(self.residual_dtype)
 
 

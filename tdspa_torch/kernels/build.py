@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 # plain gather bit for bit.
 EXTRA_FLAGS = {"lk": ("--fmad=false",), "bilinear": ("--fmad=false",)}
 KERNELS = ("attention", "vit_attention", "lk", "matcher", "quant_matmul", "block", "bilinear",
-           "attention_backward")
+           "attention_backward", "norm")
 
 
 def flags(name: str) -> tuple[str, ...]:

@@ -1,0 +1,303 @@
+"""Row norms of the transformer stacks: CUDA kernel wrappers + their plain version.
+
+The bias-free, centered LayerNorm (flax ``LayerNorm(use_bias=False)``) and
+the per-head ``RMSNorm`` of ``core/attention.py::_Norm``, over the last axis,
+in f32 statistics with eps 1e-6 and flax's fast variance. No TPU kernel
+computes them: XLA fuses flax's norms into their neighbours, where eager
+PyTorch runs each as about ten passes over the tensor.
+``tdspa_torch/csrc/norm.cu`` reads a row once into registers and writes it
+once (forward), and reads x and dy once and writes dx once (backward), for
+f32 or bf16 x and an f32 or bf16 output.
+
+``row_norm`` launches the kernel for CUDA tensors and runs
+``row_norm_reference`` (today's eager chain, bit for bit) for CPU tensors,
+through the custom op ``tdspa::row_norm`` (``kernels/ops.py``), which
+``torch.export`` keeps in an exported tail; it never falls back from one to
+the other. Where autograd records on CUDA tensors it goes through
+``row_norm_fn``, whose backward is the backward kernel (``launch_backward``);
+on CPU tensors autograd records through the eager chain itself, so CPU
+gradients stay what they were. ``row_norm.launches`` and
+``row_norm_backward.launches`` count kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from tdspa_torch.kernels import build
+
+EPS = 1e-6  # flax LayerNorm / RMSNorm default
+WARPS = 8  # warps a block of csrc/norm.cu
+MAX_VALUES = 1536  # of a row that one warp's registers hold
+# The backward's blocks an SM: whole waves whether 1, 2, 3, 4 or 6 of its
+# blocks are resident at once (its registers allow 1 to 3 on an H100).
+BACKWARD_BLOCKS_PER_SM = 12
+
+
+def row_norm_reference(x, scale, centered: bool, out_dtype):
+    """Plain PyTorch version: x [..., W] normed over W, times scale [W].
+
+    ``mean2 = mean(x^2)``; centered: ``var = max(mean2 - mean(x)^2, 0)``,
+    ``y = x - mean(x)``; RMS: ``var = mean2``, ``y = x``; then
+    ``y * (rsqrt(var + 1e-6) * scale)`` rounded once to ``out_dtype``. The
+    arithmetic is f32 for f32 or bf16 x (f64 for f64 x).
+    """
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean2 = (x32 * x32).mean(-1, keepdim=True)
+    if centered:  # flax's fast variance: E[x^2] - E[x]^2
+        mean = x32.mean(-1, keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        y = x32 - mean
+    else:
+        var, y = mean2, x32
+    mul = torch.rsqrt(var + EPS) * scale
+    return (y * mul).to(out_dtype)
+
+
+def row_norm_backward_reference(x, scale, dy, centered: bool):
+    """Plain PyTorch version of the backward kernel: (dx in x's dtype, dscale
+    in scale's dtype) for the cotangent dy of ``row_norm_reference``'s output.
+
+    With r = rsqrt(var + eps) and g = dy * scale: centered
+    ``dx = r (g - mean(g) - y r^2 mean(g y))``, the last term dropped in rows
+    where the clamp held var at 0 (as autograd of ``clamp`` does); RMS
+    ``dx = r (g - x r^2 mean(g x))``; ``dscale`` the sum over rows of
+    ``dy y r``.
+    """
+    compute = torch.promote_types(x.dtype, torch.float32)
+    x32, dy32 = x.to(compute), dy.to(compute)
+    mean2 = (x32 * x32).mean(-1, keepdim=True)
+    if centered:
+        mean = x32.mean(-1, keepdim=True)
+        d = mean2 - mean * mean
+        var, y = torch.clamp(d, min=0.0), x32 - mean
+    else:
+        var, y = mean2, x32
+    r = torch.rsqrt(var + EPS)
+    g = dy32 * scale.to(compute)
+    term = y * (r * r) * (g * y).mean(-1, keepdim=True)
+    if centered:
+        inner = g - g.mean(-1, keepdim=True) - torch.where(d >= 0, term, 0.0)
+    else:
+        inner = g - term
+    dscale = (dy32 * y * r).reshape(-1, x.shape[-1]).sum(0)
+    return (r * inner).to(x.dtype), dscale.to(scale.dtype)
+
+
+@functools.cache
+def plan(width: int, itemsize: int) -> dict:
+    """How ``csrc/norm.cu`` holds a row of ``width`` values of ``itemsize``
+    bytes: ``vec`` values a 16-byte load, ``lanes`` lanes a row (32 / lanes
+    rows a warp), ``steps`` vectors a lane, ``rows_per_block`` rows a block
+    of 8 warps (a lane group takes two rows at once where a lane holds at
+    most 16 values of a row).
+
+    ``lanes`` is the largest power of two up to 32 that divides the row's
+    vectors, unless a lane would then hold more than a warp's share of
+    ``MAX_VALUES``: then a whole warp, the last vectors of the row masked.
+    Raises ``ValueError`` for a width that is no multiple of the vector (every
+    width of both models is one) or wider than a warp's registers take.
+    """
+    vec = 16 // itemsize
+    max_steps = MAX_VALUES // (32 * vec)
+    vectors = width // vec
+    lanes = 32
+    while vectors and vectors % lanes:
+        lanes //= 2
+    if -(-vectors // lanes) > max_steps:
+        lanes = 32
+    steps = -(-vectors // lanes)
+    if width < 1 or width % vec or steps > max_steps:
+        raise ValueError(f"the row-norm kernel takes rows of {vec} to {MAX_VALUES} values, "
+                         f"a multiple of {vec}; got {width}")
+    per_group = 2 if steps * vec <= 16 else 1
+    return {"vec": vec, "lanes": lanes, "steps": steps,
+            "rows_per_block": WARPS * (32 // lanes) * per_group}
+
+
+def backward_parts(rows: int, width_plan: dict, sms: int) -> int:
+    """The backward's grid, and the rows of its f32 dscale partials (one a
+    block): ``BACKWARD_BLOCKS_PER_SM`` blocks an SM, at most one a tile of
+    rows."""
+    return max(1, min(-(-rows // width_plan["rows_per_block"]), BACKWARD_BLOCKS_PER_SM * sms))
+
+
+def _check(x, scale):
+    if x.dim() < 1 or scale.dim() != 1 or scale.shape[0] != x.shape[-1]:
+        raise ValueError(f"expected x [..., W] and scale [W]; got {tuple(x.shape)}, "
+                         f"{tuple(scale.shape)}")
+    if x.device != scale.device:
+        raise ValueError(f"x and scale lie on different devices: {x.device}, {scale.device}")
+
+
+def _check_cuda(x, scale, out_dtype):
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or scale.dtype != torch.float32 \
+            or out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel takes f32 or bf16 x, an f32 scale and an f32 or bf16 output; "
+                        f"got {x.dtype}, {scale.dtype}, {out_dtype}")
+    plan(x.shape[-1], x.element_size())  # raises for a width it does not take
+
+
+def row_norm(x, scale, centered: bool, out_dtype):
+    """x [..., W] normed over W (centered LayerNorm or RMSNorm), times scale
+    [W], as ``out_dtype``.
+
+    Runs the custom op ``tdspa::row_norm`` (``kernels/ops.py``). CUDA tensors
+    launch the kernel, which takes f32 or bf16 x, an f32 scale and an f32 or
+    bf16 output, and rows of up to 1536 values, a multiple of a 16-byte
+    vector; anything else raises (an operand off a 16-byte boundary is
+    copied). Where autograd records on CUDA tensors, ``row_norm_fn`` (the
+    backward kernel). CPU tensors run ``row_norm_reference`` (directly, and
+    differentiably, where autograd records).
+    """
+    from tdspa_torch.kernels import ops
+
+    _check(x, scale)
+    if x.device.type == "cpu":
+        if ops.records(x, scale):
+            return row_norm_reference(x, scale, centered, out_dtype)
+        return ops.row_norm(x, scale, centered, out_dtype)
+    _check_cuda(x, scale, out_dtype)
+    if ops.records(x, scale):
+        return row_norm_fn(x, scale, centered, out_dtype)
+    return ops.row_norm(x, scale, centered, out_dtype)
+
+
+def _aligned(t):
+    """t itself if it starts on a 16-byte boundary, else a fresh (aligned)
+    copy: the kernels move 16-byte words."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# tdspa_row_norm_forward(x, scale, out, x_bf16, out_bf16, centered, rows, width, lanes, nv,
+#                        stream) in csrc/norm.cu.
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# tdspa_row_norm_backward(x, scale, dy, dx, partial, dscale, x_bf16, dy_bf16, centered, rows,
+#                         width, lanes, nv, parts, stream) in csrc/norm.cu.
+BACKWARD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+@functools.cache
+def _kernel():
+    fn = build.load("norm").tdspa_row_norm_forward
+    fn.argtypes = ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _backward_kernel():
+    fn = build.load("norm").tdspa_row_norm_backward
+    fn.argtypes = BACKWARD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _rows(x) -> int:
+    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    if rows >= 2 ** 31:
+        raise ValueError(f"the row-norm kernel takes fewer than 2^31 rows; got {rows}")
+    return rows
+
+
+def launch(x, scale, centered: bool, out_dtype):
+    """The forward kernel's launch on checked CUDA operands (the op's CUDA
+    implementation)."""
+    x, scale = _aligned(x.contiguous()), _aligned(scale.contiguous())
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    rows, width = _rows(x), x.shape[-1]
+    if out.numel() == 0:
+        return out
+    p = plan(width, x.element_size())
+    with torch.cuda.device(x.device):
+        rc = _kernel()(
+            x.data_ptr(), scale.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), int(centered), rows, width, p["lanes"],
+            p["steps"], torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"row-norm kernel launch failed: CUDA error {rc}")
+    row_norm.launches += 1
+    return out
+
+
+row_norm.launches = 0
+
+
+def row_norm_backward(x, scale, dy, centered: bool):
+    """(dx, dscale) for the cotangent dy of ``row_norm(x, scale, centered,
+    dy.dtype)``: dx in x's dtype, dscale f32.
+
+    CUDA tensors launch the backward kernel (``launch_backward``: f32 or bf16
+    x and dy, f32 scale); CPU tensors run ``row_norm_backward_reference``.
+    ``row_norm_backward.launches`` counts kernel launches.
+    """
+    if dy.shape != x.shape or dy.device != x.device:
+        raise ValueError(f"dy must be {tuple(x.shape)} on {x.device}, got {tuple(dy.shape)} "
+                         f"on {dy.device}")
+    if x.device.type == "cpu":
+        return row_norm_backward_reference(x, scale, dy, centered)
+    _check_cuda(x, scale, dy.dtype)
+    return launch_backward(x, scale, dy, centered)
+
+
+def launch_backward(x, scale, dy, centered: bool):
+    """The backward kernel's launch on checked CUDA operands: the row kernel
+    on ``backward_parts`` blocks, then the sum of its per-block dscale
+    partials."""
+    x, scale, dy = (_aligned(t.contiguous()) for t in (x, scale, dy))
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    rows, width = _rows(x), x.shape[-1]
+    if rows == 0 or width == 0:
+        return dx, torch.zeros(width, dtype=torch.float32, device=x.device)
+    dscale = torch.empty(width, dtype=torch.float32, device=x.device)
+    p = plan(width, x.element_size())
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    parts = backward_parts(rows, p, sms)
+    partial = torch.empty((parts, width), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _backward_kernel()(
+            x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+            dscale.data_ptr(), int(x.dtype == torch.bfloat16), int(dy.dtype == torch.bfloat16),
+            int(centered), rows, width, p["lanes"], p["steps"], parts,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"row-norm backward kernel launch failed: CUDA error {rc}")
+    row_norm_backward.launches += 1
+    return dx, dscale
+
+
+row_norm_backward.launches = 0
+
+
+class _RowNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, centered, out_dtype):
+        # Straight to the launch: the custom op's dispatch is for tracers,
+        # and a recorded graph is not exported.
+        ctx.save_for_backward(x, scale)
+        ctx.centered = centered
+        if x.is_cuda:
+            return launch(x, scale, centered, out_dtype)
+        return row_norm_reference(x, scale, centered, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = row_norm_backward(x, scale, dy, ctx.centered)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dscale if ctx.needs_input_grad[1] else None, None, None)
+
+
+def row_norm_fn(x, scale, centered: bool, out_dtype):
+    """Differentiable row norm: forward the kernel on CUDA tensors,
+    ``row_norm_reference`` on CPU tensors; backward
+    ``row_norm_backward`` on the saved x (the backward kernel on CUDA tensors,
+    ``row_norm_backward_reference`` on CPU tensors)."""
+    return _RowNorm.apply(x, scale, centered, out_dtype)

@@ -1,29 +1,31 @@
 """The kernels of the inference tail as ``torch.library`` custom ops.
 
-``torch.export`` cannot trace a ctypes launch on ``data_ptr()``, so the four
+``torch.export`` cannot trace a ctypes launch on ``data_ptr()``, so the five
 kernels that an exported tail reaches are registered here as operators of
 the ``tdspa`` namespace:
 
 * ``tdspa::fused_masked_attention`` (``csrc/attention.cu``),
 * ``tdspa::bilinear_sample`` (``csrc/bilinear.cu``),
 * ``tdspa::quant_matmul`` (``csrc/quant_matmul.cu``),
-* ``tdspa::fused_transformer_block`` (``csrc/block.cu``).
+* ``tdspa::fused_transformer_block`` (``csrc/block.cu``),
+* ``tdspa::row_norm`` (``csrc/norm.cu``).
 
 Each has a CPU implementation, the kernel's plain version; a CUDA
 implementation, the kernel's launch; and a fake implementation that gives
 the output's shape and dtype to a tracer. Neither real implementation falls
 back to the other. The wrappers in ``kernels/{attention,bilinear,
-quant_matmul,block}.py`` check their arguments and call these ops; each
+quant_matmul,block,norm}.py`` check their arguments and call these ops; each
 wrapper's ``launches`` counter counts in the CUDA implementation, so that an
 exported program's launches count too. What a launch caches (the int8
 weights, the block's flattened operands) is cached inside the CUDA
 implementation, keyed on the real tensors it is given, never at trace time.
 
 The ops have no autograd formula: a backward through one raises. Training
-differentiates through ``kernels/attention.py::fused_attention_fn``, and on
-CPU tensors that autograd records the wrappers call the plain versions
-directly. Importing this module registers the ops and imports no model code,
-so a process that only loads an exported program imports it alone.
+differentiates through ``kernels/attention.py::fused_attention_fn`` and
+``kernels/norm.py::row_norm_fn``, and on CPU tensors that autograd records
+the wrappers call the plain versions directly. Importing this module
+registers the ops and imports no model code, so a process that only loads an
+exported program imports it alone.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from tdspa_torch.kernels import attention, bilinear, block
+from tdspa_torch.kernels import attention, bilinear, block, norm
 from tdspa_torch.kernels import quant_matmul as quant_matmul_lib
 
 
@@ -107,4 +109,20 @@ def _(x, params, heads, out_dtype):
 
 @fused_transformer_block.register_fake
 def _(x, params, heads, out_dtype):
+    return x.new_empty(x.shape, dtype=out_dtype)
+
+
+@torch.library.custom_op("tdspa::row_norm", mutates_args=(), device_types="cpu")
+def row_norm(x: torch.Tensor, scale: torch.Tensor, centered: bool,
+             out_dtype: torch.dtype) -> torch.Tensor:
+    return norm.row_norm_reference(x, scale, centered, out_dtype)
+
+
+@row_norm.register_kernel("cuda")
+def _(x, scale, centered, out_dtype):
+    return norm.launch(x, scale, centered, out_dtype)
+
+
+@row_norm.register_fake
+def _(x, scale, centered, out_dtype):
     return x.new_empty(x.shape, dtype=out_dtype)

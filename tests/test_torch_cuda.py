@@ -671,3 +671,158 @@ def test_one_rank_nccl_mesh_tail_equals_the_tail(cuda_device, tmp_path):
     assert launched == [5, 3]
     torch.testing.assert_close(got.tracks, want.tracks, rtol=0, atol=0)
     torch.testing.assert_close(got_3d, want_3d, rtol=0, atol=0)
+
+
+NORM_WIDTHS = [(w, dt) for w in (256, 384, 512, 896, 1024, 1152, 1280)
+               for dt in (torch.float32, torch.bfloat16)] + [(64, torch.bfloat16),
+                                                             (96, torch.bfloat16)]
+
+
+def _close_rows(got, want, rel, rtol):
+    """Within ``rel`` of each row's largest value, plus ``rtol`` of each value
+    (a bf16 output may round the other way: 2**-7)."""
+    got, want = got.float(), want.float()
+    atol = rel * want.abs().amax(dim=-1, keepdim=True)
+    bad = (got - want).abs() > atol + rtol * want.abs()
+    assert not bad.any(), f"{int(bad.sum())} values off; worst {(got - want).abs().max().item()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,x_dtype", NORM_WIDTHS)
+def test_row_norm_kernel_matches_plain_version(cuda_device, width, x_dtype):
+    """``csrc/norm.cu`` forward (f32 and bf16 out) and backward (dx, dscale)
+    against the plain versions on the card, centered and RMS, over 777 rows
+    (no multiple of a block's rows), the first row zero (zero variance,
+    r = 1000; a constant row of nonzero mean would be ill-conditioned, its
+    fast variance being rounding): within f32 rounding of each row's largest
+    value (1e-5), and a bf16 ulp where the output is bf16."""
+    from tdspa_torch.kernels import norm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(width)
+    x = (torch.randn((777, width), generator=gen, device=cuda_device) * 2 + 0.5).to(x_dtype)
+    x[0] = 0.0
+    scale = torch.rand(width, generator=gen, device=cuda_device) + 0.5
+    for centered in (True, False):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            rtol = 2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5
+            before = norm.row_norm.launches
+            with torch.inference_mode():
+                got = norm.row_norm(x, scale, centered, out_dtype)
+            torch.cuda.synchronize()
+            assert norm.row_norm.launches == before + 1 and got.dtype == out_dtype
+            _close_rows(got, norm.row_norm_reference(x, scale, centered, out_dtype), 1e-5, rtol)
+
+            dy = torch.randn(x.shape, generator=gen, device=cuda_device).to(out_dtype)
+            before = norm.row_norm_backward.launches
+            dx, dscale = norm.row_norm_backward(x, scale, dy, centered)
+            torch.cuda.synchronize()
+            assert norm.row_norm_backward.launches == before + 1
+            want_dx, want_dscale = norm.row_norm_backward_reference(x, scale, dy, centered)
+            assert dx.dtype == x_dtype and dscale.dtype == torch.float32
+            _close_rows(dx, want_dx, 1e-5, 2.0 ** -7 if x_dtype == torch.bfloat16 else 1e-5)
+            torch.testing.assert_close(dscale, want_dscale, rtol=1e-4,
+                                       atol=1e-4 * want_dscale.abs().max().item())
+            again = norm.row_norm_backward(x, scale, dy, centered)
+            assert torch.equal(again[0], dx) and torch.equal(again[1], dscale)  # no atomics
+
+
+@pytest.mark.cuda
+def test_row_norm_kernel_copies_unaligned_operands_and_refuses_odd_widths(cuda_device):
+    """Operands off a 16-byte boundary (x, and dy in the backward) are copied
+    to aligned ones and give the plain result; widths that are no multiple
+    of a 16-byte vector raise before any launch."""
+    from tdspa_torch.kernels import norm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    flat = torch.randn(301 * 64 + 2, generator=gen, device=cuda_device)
+    x = flat[2:].view(301, 64)  # 8 bytes past the allocation's alignment
+    dy = torch.randn(301 * 64 + 1, generator=gen, device=cuda_device)[1:].view(301, 64)
+    scale = torch.rand(64, generator=gen, device=cuda_device) + 0.5
+    with torch.inference_mode():
+        got = norm.row_norm(x, scale, False, torch.bfloat16)
+    _close_rows(got, norm.row_norm_reference(x, scale, False, torch.bfloat16), 1e-5, 2.0 ** -7)
+    dx, dscale = norm.row_norm_backward(x, scale, dy, True)
+    want_dx, want_dscale = norm.row_norm_backward_reference(x, scale, dy, True)
+    _close_rows(dx, want_dx, 1e-5, 1e-5)
+    torch.testing.assert_close(dscale, want_dscale, rtol=1e-4,
+                               atol=1e-4 * want_dscale.abs().max().item())
+    before = norm.row_norm.launches, norm.row_norm_backward.launches
+    for width, x_dtype in ((12, torch.bfloat16), (7, torch.float32), (20, torch.bfloat16)):
+        x = torch.randn((301, width), generator=gen, device=cuda_device).to(x_dtype)
+        scale = torch.rand(width, generator=gen, device=cuda_device) + 0.5
+        with pytest.raises(ValueError, match="a multiple of"), torch.inference_mode():
+            norm.row_norm(x, scale, True, torch.float32)
+        with pytest.raises(ValueError, match="a multiple of"):
+            norm.row_norm_backward(x, scale, torch.ones_like(x), True)
+    assert (norm.row_norm.launches, norm.row_norm_backward.launches) == before
+
+
+@pytest.mark.cuda
+def test_tiny_3dspa_forward_launches_one_row_norm_per_norm(cuda_device):
+    """Tiny widths, the default stack depths 3/4/4/4: 72 launches, one a
+    ``_Norm`` (3 x 4 + 1 encoder, 4 x 6 + 1 latents with their
+    cross-attention, 4 x 4 + 1 decompress, 4 x 4 + 1 readout); in f32, the
+    same model on the CPU (the eager chain) within 1e-4 of the range."""
+    from tdspa_torch.kernels import norm
+
+    depths = dict(input_track_layers=3, tracks_to_latents_layers=4, decompress_layers=4,
+                  readout_layers=4)
+    model = tiny_model_3d(12, device=cuda_device, **depths)
+    cpu = tiny_model_3d(12, device="cpu", **depths)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    batch = synthetic_batch(0, with_features=True)
+    before = norm.row_norm.launches
+    with torch.inference_mode():
+        got = model(to_torch(batch, cuda_device))
+        want = cpu(to_torch(batch, "cpu"))
+    assert norm.row_norm.launches - before == 72
+    for name in ("tracks", "visible_logits"):
+        w = getattr(want, name)
+        torch.testing.assert_close(getattr(got, name).cpu(), w, rtol=0,
+                                   atol=1e-4 * w.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_stack_gradients_through_the_norm_kernels_match_the_cpu(cuda_device):
+    """An f32 two-layer stack with cross-attention (plain attention): loss and
+    every parameter's gradient through the norm kernels (forward and backward)
+    against the same stack on the CPU (the eager chain), 1e-4 of each
+    gradient's largest value."""
+    from tdspa_torch.core.attention import TransformerStack, reset_parameters
+    from tdspa_torch.kernels import norm
+
+    stack = TransformerStack(64, 64, 2, 96, 2, kv_width=48, device="cpu")
+    reset_parameters(stack, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in stack.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    x, kv = torch.randn((3, 40, 64), generator=gen), torch.randn((3, 17, 48), generator=gen)
+    gpu = TransformerStack(64, 64, 2, 96, 2, kv_width=48, device=cuda_device)
+    gpu.load_state_dict({k: v.to(cuda_device) for k, v in stack.state_dict().items()})
+    losses, grads = [], []
+    before = norm.row_norm_backward.launches
+    for module, dev in ((stack, "cpu"), (gpu, cuda_device)):
+        loss = module(x.to(dev), inputs_kv=kv.to(dev)).square().mean()
+        losses.append(loss.item())
+        grads.append(torch.autograd.grad(loss, list(module.parameters())))
+    assert norm.row_norm_backward.launches - before == 2 * 6 + 1
+    assert abs(losses[1] / losses[0] - 1) < 1e-5
+    for want, got in zip(*grads):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_runs_the_norm_backward(cuda_device):
+    """One bf16 TRAJAN step: the norms' backward runs on the kernel (the remat
+    recompute's forward norms too), the loss finite."""
+    from tdspa_torch.kernels import norm
+    from tdspa_torch.train.step import loss_and_grads
+    from tdspa_torch.utils.testing import tiny_model_2d
+
+    model = tiny_model_2d(12, device=cuda_device, fused_attention=True, dtype=torch.bfloat16)
+    batch = to_torch(synthetic_batch(0, num_coords=2), cuda_device)
+    before = norm.row_norm.launches, norm.row_norm_backward.launches
+    losses, grads = loss_and_grads(model, dict(model.named_parameters()), batch)
+    assert norm.row_norm.launches > before[0] and norm.row_norm_backward.launches > before[1]
+    assert torch.isfinite(losses["total_loss"]) and all(torch.isfinite(g).all() for g in grads)

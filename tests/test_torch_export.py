@@ -97,7 +97,7 @@ def test_roundtrip_matches_live_program(artifact):
     assert disk == manifest and disk["model"] == "tiny_3d"
     assert disk["nr_args"] == 7 and disk["device"] == "cpu"
     assert disk["param_names"] == list(params)
-    assert disk["tdspa_ops"] == ["tdspa.bilinear_sample.default"]
+    assert disk["tdspa_ops"] == ["tdspa.bilinear_sample.default", "tdspa.row_norm.default"]
     assert disk["torch_version"] == torch.__version__
     assert os.path.getsize(path) == disk["bytes"] < 4 * 2 ** 20  # no weights inside
 
@@ -169,11 +169,14 @@ def test_cuda_artifact_exports_on_a_host_without_a_gpu(tmp_path):
     """Traced on fake CUDA tensors: the kernels stay ``tdspa::`` ops on cuda,
     one per launch the card would make (the counts of the tiny models in
     tests/test_torch_cuda.py: 5 attention + 3 bilinear; quantised 28 int8;
-    fused block 2 block + 3 attention)."""
-    want = {"default": {"fused_masked_attention": 5, "bilinear_sample": 3},
-            "quantize": {"fused_masked_attention": 5, "bilinear_sample": 3, "quant_matmul": 28},
+    fused block 2 block + 3 attention; 22 row norms, one a ``_Norm`` of the
+    one-layer stacks (4 + 1, 6 + 1 with the latents' cross-attention, 4 + 1,
+    4 + 1), 14 where the decompress and readout layers run as fused blocks)."""
+    want = {"default": {"fused_masked_attention": 5, "bilinear_sample": 3, "row_norm": 22},
+            "quantize": {"fused_masked_attention": 5, "bilinear_sample": 3, "quant_matmul": 28,
+                         "row_norm": 22},
             "fused_block": {"fused_masked_attention": 3, "bilinear_sample": 3,
-                            "fused_transformer_block": 2}}
+                            "fused_transformer_block": 2, "row_norm": 14}}
     for knob, counts in want.items():
         model = _model(dtype=torch.bfloat16, fused_attention=True, qkv_size=64,
                        **({} if knob == "default" else {knob: True}))
