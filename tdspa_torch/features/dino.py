@@ -39,6 +39,16 @@ _NAME_TO_PRESET = {
 }
 
 
+def dino_config(model_name: str) -> ViTConfig:
+    """The ViT of an HF DINOv2 checkpoint: its preset (``ViTConfig.PRESETS``;
+    only the giant's resizes the position table as HF does). ``ValueError``
+    for a name that is not one of the four (pass ``vit_config`` for another)."""
+    if model_name not in _NAME_TO_PRESET:
+        raise ValueError(f"unknown DINOv2 model {model_name!r}: one of "
+                         f"{sorted(_NAME_TO_PRESET)}, or pass vit_config")
+    return ViTConfig.preset(_NAME_TO_PRESET[model_name])
+
+
 def load_dinov2_params(model_name: str, config: ViTConfig):
     """HF-cached weights -> flax tree; None when unavailable. Reads the local
     cache only: there is no download. The snapshot is looked up in the cache
@@ -80,11 +90,12 @@ def normalize_frames(video, device, out_hw=None) -> torch.Tensor:
 class DinoFeatureExtractor:
     """video [T H W 3] (uint8 or float in [0, 255]) -> [T Hp Wp D] f32 features.
 
-    ``frame_chunk`` = 8 divides the pipeline's upload chunks (40 and 30
-    frames), so streamed per-chunk calls pad nothing. ``residual_dtype`` and
-    ``gelu_approximate`` are the ViT's knobs; ``fused_attention=False`` keeps
-    the plain attention on a GPU too; ``vit_config`` replaces the preset
-    that ``model_name`` names (a small encoder for tests).
+    Groups of ``frame_chunk`` = 8 frames: the pipeline's 40-frame upload
+    chunks pad nothing, the 30-frame last chunk of a 150-frame video is
+    padded by 2. ``residual_dtype`` and ``gelu_approximate`` are the ViT's
+    knobs; ``fused_attention=False`` keeps the plain attention on a GPU too;
+    ``vit_config`` replaces the configuration that ``model_name`` names
+    (``dino_config``; a small encoder for tests).
     """
 
     def __init__(
@@ -101,7 +112,7 @@ class DinoFeatureExtractor:
         seed: int = 0,
     ):
         self.device = resolve_device(device)
-        self.config = vit_config or ViTConfig.preset(_NAME_TO_PRESET.get(model_name, "vitb"))
+        self.config = vit_config or dino_config(model_name)
         self.model = Dinov2(self.config, dtype, residual_dtype, gelu_approximate,
                             fused_attention, self.device)
         self.frame_chunk = frame_chunk

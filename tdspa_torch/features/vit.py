@@ -1,8 +1,14 @@
 """DINOv2-compatible Vision Transformer (port of ``tdspa/features/vit.py``).
 
 Pre-LN blocks with layer scale, qkv-bias attention, the exact-erf GELU MLP
-(tanh with ``gelu_approximate``), bicubic position-embedding interpolation
-and a final LayerNorm that emits f32, as HF ``Dinov2Model`` computes them.
+(tanh with ``gelu_approximate``) or, for ViT-g/14, the SwiGLU FFN
+(``ViTConfig.ffn``), bicubic position-embedding interpolation and a final
+LayerNorm that emits f32, as HF ``Dinov2Model`` computes them. The position
+table is resized as ``jax.image.resize`` does (antialiased Keys cubic,
+a = -0.5; the JAX package's choice, kept for ViT-S/B/L so that they stay the
+JAX package's answer) or, with ``pos_resize="hf"`` (the ``vitg`` preset: the
+JAX package has no SwiGLU, and ViT-g/14 is held to HF's plain reference), as
+HF does (``F.interpolate`` bicubic, a = -0.75, no antialiasing).
 Parameter names and layouts are the flax tree's (``DenseGeneral`` kernels
 ``[in, H, Dh]``, ``output`` ``[H, Dh, out]``, the patch ``Conv`` kernel
 ``[p, p, 3, D]``), so ``tdspa_torch.infer.convert.params_from_flax`` carries
@@ -25,17 +31,25 @@ import torch.nn.functional as F
 from tdspa_torch.core.attention import Dense, DenseGeneral, masked_dot_product_attention
 from tdspa_torch.core.layers import Conv, LayerNorm
 from tdspa_torch.kernels.attention import vit_attention
-from tdspa_torch.ops.resize import resize
+from tdspa_torch.ops.resize import resize, resize_torch_bicubic
+from tdspa_torch.utils.profiling import span
+
+FFNS = ("mlp", "swiglu")
+POS_RESIZES = ("jax", "hf")
 
 
 class ViTConfig:
-    """Shapes for dinov2-small/base/large/giant."""
+    """Shapes for dinov2-small/base/large/giant. ``ffn`` is the block's
+    feed-forward: ``mlp`` (fc1, GELU, fc2) or ``swiglu`` (ViT-g/14's
+    ``SwiGLUFFNFused``); ``pos_resize`` the position table's resize (module
+    docstring)."""
 
     PRESETS = {
         "vits": dict(hidden_size=384, num_layers=12, num_heads=6),
         "vitb": dict(hidden_size=768, num_layers=12, num_heads=12),
         "vitl": dict(hidden_size=1024, num_layers=24, num_heads=16),
-        "vitg": dict(hidden_size=1536, num_layers=40, num_heads=24),
+        "vitg": dict(hidden_size=1536, num_layers=40, num_heads=24, ffn="swiglu",
+                     pos_resize="hf"),
     }
 
     def __init__(
@@ -48,7 +62,12 @@ class ViTConfig:
         image_size: int = 518,
         layer_norm_eps: float = 1e-6,
         layerscale_value: float = 1.0,
+        ffn: str = "mlp",
+        pos_resize: str = "jax",
     ):
+        if ffn not in FFNS or pos_resize not in POS_RESIZES:
+            raise ValueError(f"ffn={ffn!r} must be one of {FFNS} and pos_resize={pos_resize!r} "
+                             f"one of {POS_RESIZES}")
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.num_heads = num_heads
@@ -57,6 +76,16 @@ class ViTConfig:
         self.image_size = image_size
         self.layer_norm_eps = layer_norm_eps
         self.layerscale_value = layerscale_value
+        self.ffn = ffn
+        self.pos_resize = pos_resize
+
+    @property
+    def ffn_hidden_size(self) -> int:
+        """The FFN's hidden width: ``mlp_ratio`` x the model's for the MLP; for
+        SwiGLU two thirds of that, rounded up to a multiple of 8 (4096 at
+        1536), as ``SwiGLUFFNFused`` sizes it."""
+        hidden = self.hidden_size * self.mlp_ratio
+        return hidden if self.ffn == "mlp" else (int(hidden * 2 / 3) + 7) // 8 * 8
 
     @classmethod
     def preset(cls, name: str, **kwargs) -> "ViTConfig":
@@ -85,7 +114,11 @@ class _Attention(nn.Module):
 
 class _Block(nn.Module):
     """Pre-LN block; ``residual_dtype`` is the residual stream's type (norm
-    statistics stay f32), ``gelu_approximate`` swaps HF's erf GELU for tanh."""
+    statistics stay f32), ``gelu_approximate`` swaps HF's erf GELU for tanh
+    (the MLP's). The SwiGLU FFN is ``weights_out(silu(x1) * x2)`` with
+    ``x1, x2`` the halves of ``weights_in(x)``, in the compute dtype.
+    Spans: ``tdspa.vit.attention`` (norm1, attention, layer scale, residual)
+    and ``tdspa.vit.ffn`` (norm2, FFN, layer scale, residual)."""
 
     def __init__(self, config: ViTConfig, dtype=torch.float32, residual_dtype=torch.float32,
                  gelu_approximate: bool = False, use_fused: bool = True, device="cpu"):
@@ -99,8 +132,14 @@ class _Block(nn.Module):
                                     kernel_out_dtype=residual_dtype, device=device)
         self.layer_scale1 = nn.Parameter(torch.empty(c.hidden_size, device=device))
         self.norm2 = LayerNorm(c.hidden_size, c.layer_norm_eps, residual_dtype, device)
-        self.fc1 = Dense(c.hidden_size, c.hidden_size * c.mlp_ratio, dtype, device)
-        self.fc2 = Dense(c.hidden_size * c.mlp_ratio, c.hidden_size, dtype, device)
+        self.swiglu = c.ffn == "swiglu"
+        hidden = c.ffn_hidden_size
+        if self.swiglu:
+            self.weights_in = Dense(c.hidden_size, 2 * hidden, dtype, device)
+            self.weights_out = Dense(hidden, c.hidden_size, dtype, device)
+        else:
+            self.fc1 = Dense(c.hidden_size, hidden, dtype, device)
+            self.fc2 = Dense(hidden, c.hidden_size, dtype, device)
         self.layer_scale2 = nn.Parameter(torch.empty(c.hidden_size, device=device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -108,19 +147,27 @@ class _Block(nn.Module):
             self.layer_scale1.fill_(self.layerscale_value)
             self.layer_scale2.fill_(self.layerscale_value)
 
+    def ffn(self, x):
+        if self.swiglu:
+            x1, x2 = self.weights_in(x).chunk(2, dim=-1)
+            return self.weights_out(F.silu(x1) * x2)
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.gelu))
+
     def forward(self, x):
         rd = self.residual_dtype
         # The f32 layer-scale parameters are cast down rather than promoting
         # the residual back to f32.
-        h = self.attention(self.norm1(x)) * self.layer_scale1.to(rd)
-        x = x.to(rd) + h
-        h = F.gelu(self.fc1(self.norm2(x)), approximate=self.gelu)
-        h = self.fc2(h) * self.layer_scale2.to(rd)
-        return x + h.to(rd)
+        with span("tdspa.vit.attention"):
+            h = self.attention(self.norm1(x)) * self.layer_scale1.to(rd)
+            x = x.to(rd) + h
+        with span("tdspa.vit.ffn"):
+            h = self.ffn(self.norm2(x)) * self.layer_scale2.to(rd)
+            return x + h.to(rd)
 
 
-def interpolate_pos_embed(pos_embed, new_height: int, new_width: int):
+def interpolate_pos_embed(pos_embed, new_height: int, new_width: int, mode: str = "jax"):
     """Bicubic-resize the patch position grid; the CLS slot passes through.
+    ``mode`` is ``ViTConfig.pos_resize``.
 
     pos_embed: [1, 1+S*S, D] -> [1, 1+new_h*new_w, D].
     """
@@ -129,13 +176,18 @@ def interpolate_pos_embed(pos_embed, new_height: int, new_width: int):
     dim = patch_pos.shape[-1]
     if (new_height, new_width) == (side, side):
         return pos_embed
-    grid = resize(patch_pos.reshape(1, side, side, dim).float(), (new_height, new_width),
-                  method="bicubic")
+    grid = patch_pos.reshape(1, side, side, dim).float()
+    if mode == "hf":
+        grid = resize_torch_bicubic(grid, (new_height, new_width))
+    else:
+        grid = resize(grid, (new_height, new_width), method="bicubic")
     return torch.cat([cls_pos, grid.reshape(1, new_height * new_width, dim)], dim=1)
 
 
 class Dinov2(nn.Module):
     """DINOv2 encoder (counterpart of ``Dinov2Flax``): [B H W 3] -> tokens.
+    Spans: ``tdspa.vit.embed`` (patch embedding, CLS, position table), the
+    blocks' and ``tdspa.vit.final_norm``.
 
     ``forward`` returns the last hidden state [B, 1+hw, D] in f32 (CLS
     first), and with ``taps`` (block indices) also the outputs of those
@@ -165,17 +217,19 @@ class Dinov2(nn.Module):
             self.pos_embed.normal_(0.0, 1.0, generator=generator)
 
     def forward(self, pixel_values, taps=()):
-        x = self.patch_embed(pixel_values)  # [B hp wp D]
-        batch, hp, wp, dim = x.shape
-        cls = self.cls_token.expand(batch, 1, dim)
-        x = torch.cat([cls, x.reshape(batch, hp * wp, dim).to(cls.dtype)], dim=1)
-        x = x + interpolate_pos_embed(self.pos_embed, hp, wp)
+        with span("tdspa.vit.embed"):
+            x = self.patch_embed(pixel_values)  # [B hp wp D]
+            batch, hp, wp, dim = x.shape
+            cls = self.cls_token.expand(batch, 1, dim)
+            x = torch.cat([cls, x.reshape(batch, hp * wp, dim).to(cls.dtype)], dim=1)
+            x = x + interpolate_pos_embed(self.pos_embed, hp, wp, self.config.pos_resize)
         tapped = {}
         for i in range(self.config.num_layers):
             x = getattr(self, f"layer_{i}")(x)
             if i in taps:
                 tapped[i] = x
-        out = self.layernorm(x)
+        with span("tdspa.vit.final_norm"):
+            out = self.layernorm(x)
         return (out, [tapped[i] for i in taps]) if taps else out
 
     def patch_grid(self, pixel_values):
@@ -187,7 +241,10 @@ class Dinov2(nn.Module):
 
 
 def convert_hf_dinov2_params(state_dict, config: ViTConfig) -> dict:
-    """HF ``Dinov2Model`` torch state_dict -> the flax parameter tree (numpy)."""
+    """HF ``Dinov2Model`` torch state_dict -> the flax parameter tree (numpy).
+    The FFN's weights are ``mlp.fc1``/``mlp.fc2`` or, for ``ffn="swiglu"``,
+    ``mlp.weights_in``/``mlp.weights_out`` (a missing one raises
+    ``KeyError``); the unused ``embeddings.mask_token`` is not read."""
 
     def t(name):
         return state_dict[name].detach().cpu().numpy()
@@ -228,7 +285,9 @@ def convert_hf_dinov2_params(state_dict, config: ViTConfig) -> dict:
             },
             "layer_scale1": t(f"{pre}.layer_scale1.lambda1"),
             "layer_scale2": t(f"{pre}.layer_scale2.lambda1"),
-            "fc1": {"kernel": t(f"{pre}.mlp.fc1.weight").T, "bias": t(f"{pre}.mlp.fc1.bias")},
-            "fc2": {"kernel": t(f"{pre}.mlp.fc2.weight").T, "bias": t(f"{pre}.mlp.fc2.bias")},
         }
+        ffn = ("weights_in", "weights_out") if config.ffn == "swiglu" else ("fc1", "fc2")
+        for name in ffn:
+            params[f"layer_{i}"][name] = {"kernel": t(f"{pre}.mlp.{name}.weight").T,
+                                          "bias": t(f"{pre}.mlp.{name}.bias")}
     return params

@@ -40,8 +40,9 @@ import torch.distributed as dist
 
 from tdspa_torch.data.batch_prep import split_and_sample_queries
 from tdspa_torch.features.depth import VideoDepthEstimator
-from tdspa_torch.features.dino import DinoFeatureExtractor
+from tdspa_torch.features.dino import DinoFeatureExtractor, dino_config
 from tdspa_torch.features.tracks import PyramidalLKTracker
+from tdspa_torch.features.vit import ViTConfig
 from tdspa_torch.infer.checkpoint import check_params_structure, load_checkpoint
 from tdspa_torch.infer.convert import params_from_flax
 from tdspa_torch.infer.video import load_video
@@ -224,6 +225,11 @@ class InferencePipeline:
     (``tdspa_torch.parallel.make_mesh``, every rank in order) runs the tail
     sharded over its ranks (``make_mesh_tail``), with rank 0's split; every
     rank runs the pipeline and gets the whole result.
+
+    The model's DINO projection is as wide as the DINO backbone: the passed
+    extractor's ``ViTConfig``, else ``dino_model``'s. A passed model or
+    extractor of another width is refused (``ValueError``): at construction
+    where both are passed, else when the extractor is built.
     """
 
     def __init__(
@@ -285,10 +291,18 @@ class InferencePipeline:
         self.depth_output_scale = depth_output_scale
         self.depth_input_size = depth_input_size
         self.gelu_approximate = gelu_approximate
+        self._dino_extractor = dino_extractor
+        # The DINO backbone's width (a provider of unknown width: the default).
+        dino_width = {}
+        if model is None and use_dino:
+            width = (_backbone_width(dino_extractor) if dino_extractor is not None
+                     else dino_config(dino_model).hidden_size)
+            dino_width = {"dino_feature_dim": width} if width else {}
         self.model = model or TrackAutoEncoder3D(
             num_output_frames=num_output_frames,
             use_dino=use_dino,
             use_depth=use_depth,
+            **dino_width,
             dtype=dtype,
             # The fused kernel computes in bf16: engage it only when bf16
             # compute was asked for (and only on CUDA tensors).
@@ -303,8 +317,9 @@ class InferencePipeline:
             device=self.device,
             seed=42,
         )
+        if model is not None and dino_extractor is not None:
+            self._check_dino_width(dino_extractor)
         self._track_provider = track_provider
-        self._dino_extractor = dino_extractor
         self._depth_provider = depth_provider
         self.params = params
         self.checkpoint_path = checkpoint_path
@@ -338,7 +353,19 @@ class InferencePipeline:
                 model_name=self.dino_model_name, residual_dtype=self.residual_dtype,
                 gelu_approximate=self.gelu_approximate, device=self.device,
             )
+            self._check_dino_width(self._dino_extractor)
         return self._dino_extractor
+
+    def _check_dino_width(self, extractor) -> None:
+        """``ValueError`` where the model's DINO projection and the backbone
+        (an extractor with a ``ViTConfig``) differ in width."""
+        width = _backbone_width(extractor)
+        if not (self.use_dino and getattr(self.model, "use_dino", False) and width):
+            return
+        model_width = self.model.dino_projection.kernel.shape[0]
+        if model_width != width:
+            raise ValueError(f"the model's DINO projection takes {model_width}-d features, "
+                             f"the DINO backbone gives {width}-d ones")
 
     @property
     def depth_provider(self):
@@ -543,6 +570,12 @@ class InferencePipeline:
         logger.info("Loaded video: %d frames, %dx%d, %.2f fps",
                     video.shape[0], video.shape[1], video.shape[2], fps)
         return self.run_on_frames(video, fps)
+
+
+def _backbone_width(extractor) -> int | None:
+    """Hidden size of an extractor's ViT; None for a provider without one."""
+    config = getattr(extractor, "config", None)
+    return config.hidden_size if isinstance(config, ViTConfig) else None
 
 
 def run_inference(video_path: str, checkpoint_path: str | None, **kwargs) -> dict:

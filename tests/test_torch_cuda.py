@@ -826,3 +826,53 @@ def test_tiny_train_step_runs_the_norm_backward(cuda_device):
     losses, grads = loss_and_grads(model, dict(model.named_parameters()), batch)
     assert norm.row_norm.launches > before[0] and norm.row_norm_backward.launches > before[1]
     assert torch.isfinite(losses["total_loss"]) and all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.cuda
+def test_vitg_block_matches_the_plain_reference(cuda_device):
+    """One DINOv2 ViT-g/14 block at its published width (1536, 24 heads of
+    64, SwiGLU 4096) on 8 frames of 1297 tokens, as the extractor runs it
+    (bf16 products, the ViT attention kernel, f32 residual), against the
+    plain f32 reference ``tests/plain/dinov2.py`` (TF32 off), both on the
+    checkpoint-named weights. The block's increment (output minus input) is
+    compared: the worst token's gap within 2e-2 of the median token's norm,
+    about 5 times what bf16 operands (2**-8 relative) in four chained
+    products give."""
+    from tdspa_torch.features.vit import Dinov2, ViTConfig, convert_hf_dinov2_params
+    from tdspa_torch.infer.convert import params_from_flax
+    from tdspa_torch.kernels.attention import vit_attention
+    from tests.plain import dinov2 as plain
+
+    config = ViTConfig.preset("vitg", num_layers=1)
+    cfg = {"hidden_size": 1536, "num_hidden_layers": 1, "num_attention_heads": 24,
+           "mlp_ratio": 4, "patch_size": 14, "image_size": 518, "layer_norm_eps": 1e-6,
+           "use_swiglu_ffn": True}
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    state = {}
+    for name, shape in plain.state_shapes(cfg).items():
+        x = torch.randn(shape, generator=gen, device=cuda_device)
+        if len(shape) == 1:
+            x = 1.0 + 0.1 * x if name.endswith(("norm1.weight", "norm2.weight", "lambda1")) \
+                else 0.1 * x
+        elif name.endswith("weight"):
+            x = x / shape[1] ** 0.5
+        state[name] = x
+    model = Dinov2(config, dtype=torch.bfloat16, residual_dtype=torch.float32,
+                   device=cuda_device)
+    model.load_state_dict(params_from_flax(convert_hf_dinov2_params(state, config)))
+    x = torch.randn((8, 1297, 1536), generator=gen, device=cuda_device)
+    before = vit_attention.launches
+    with torch.inference_mode():
+        got = model.layer_0(x)
+    assert vit_attention.launches - before == 1
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        with torch.no_grad():
+            want = plain.block(state, 0, x, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    assert got.dtype == torch.float32
+    gap = torch.linalg.vector_norm(got - want, dim=-1)
+    worst = float(gap.max() / torch.linalg.vector_norm(want - x, dim=-1).median())
+    assert worst < 2e-2, worst

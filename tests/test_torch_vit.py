@@ -20,7 +20,7 @@ from tdspa.features import dino as jax_dino
 from tdspa.features.vit import Dinov2Flax, ViTConfig as JaxViTConfig
 from tdspa.features.vit import convert_hf_dinov2_params as jax_convert_hf
 from tdspa.features.vit import interpolate_pos_embed as jax_interpolate
-from tdspa_torch.features.dino import DinoFeatureExtractor
+from tdspa_torch.features.dino import DinoFeatureExtractor, dino_config
 from tdspa_torch.features.vit import Dinov2, ViTConfig, convert_hf_dinov2_params
 from tdspa_torch.features.vit import interpolate_pos_embed
 from tdspa_torch.infer.convert import params_from_flax
@@ -89,6 +89,20 @@ def test_interpolate_pos_embed_matches_jax(new_hw):
     pos = np.random.default_rng(4).standard_normal((1, 1 + 16, 8)).astype(np.float32)
     want = jax_interpolate(jnp.asarray(pos), *new_hw)
     got = interpolate_pos_embed(torch.from_numpy(pos), *new_hw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["facebook/dinov2-small", "facebook/dinov2-base",
+                                  "facebook/dinov2-large"])
+def test_dino_names_resize_the_position_table_as_jax(name):
+    """The extractors of ViT-S/B/L (the pipeline's default is ViT-B) resize
+    the native 37x37 table to the 36x36 grid of a 504x504 frame as the JAX
+    package does; only the giant, which the JAX package lacks, resizes as HF."""
+    config = dino_config(name)
+    assert config.pos_resize == "jax" and dino_config("facebook/dinov2-giant").pos_resize == "hf"
+    pos = np.random.default_rng(7).standard_normal((1, 1 + 37 * 37, 4)).astype(np.float32)
+    want = jax_interpolate(jnp.asarray(pos), 36, 36)
+    got = interpolate_pos_embed(torch.from_numpy(pos), 36, 36, config.pos_resize)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
 
 
