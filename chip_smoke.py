@@ -63,11 +63,13 @@ and the script exits non-zero:
    then the noisy video, whose chunks engage the matcher (8 launches).
 9. features: ``DinoFeatureExtractor`` and ``VideoDepthEstimator`` (ViT-B,
    seeded weights) on the clean scene's whole video: [150,36,36,768] and
-   [150,512,512,1] (finite, depth >= 0), 228 ViT kernel launches each, and
-   their agreement with the same extractors on plain attention.
+   [150,512,512,1] (finite, depth >= 0), 228 ViT kernel and 703 ViT row
+   kernel launches each, no SwiGLU gate, and their agreement with the same
+   extractors on plain attention (which share the row kernels).
 10. pipeline_full: ``InferencePipeline()`` with no front end passed in, on
    the clean scene: DINO and depth streamed per upload chunk; per run 456
-   ViT, 19 tail attention, 3 bilinear and 4 LK launches; the streamed features equal
+   ViT, 1406 ViT row kernel, no SwiGLU gate, 19 tail attention, 3 bilinear
+   and 4 LK launches; the streamed features equal
    one whole-video call of the same extractors; tracking quality as in 7;
    ``save_results`` writes the reference's ``predictions.npz``.
 
@@ -108,7 +110,8 @@ and the script exits non-zero:
    attention; ``save_visualization_npz`` writes the reference's contract.
 17. video_entry: the clean scene written as an mp4 (``save_video``), then
    ``run_inference(path)`` and the infer CLI (``tdspa_torch.cli.infer.main``)
-   on it: per run 456 ViT, 19 attention, 3 bilinear and 4 LK launches, and
+   on it: per run 456 ViT, 1406 ViT row kernel, 19 attention, 3 bilinear
+   and 4 LK launches, and
    ``predictions.npz`` in the reference's schema.
 18. eval_harness: ``evaluate_model`` at full width (default 3DSPA, seeded
    weights, 150 frames, DINO and depth on, no features supplied) on 16
@@ -193,6 +196,21 @@ and the script exits non-zero:
    (``F.layer_norm`` / ``F.rms_norm`` and a cast, timed only: the port never
    calls them) and the bound (bytes over 3.35 TB/s: each operand read once,
    each output written once).
+31. vit_block_kernel (after phase 30): the ViT block's kernels
+   (``csrc/vit_block.cu``) at ViT-g/14's shapes, 8 frames of 1297 tokens:
+   the row kernel's four launches (norm1, the attention's residual with norm2,
+   the FFN's residual, the final norm; f32 stream, bf16 projections) over
+   [10376, 1536] and the SwiGLU gate over [10376, 8192] -> [10376, 4096]
+   bf16; the row kernel's four launches also at ViT-B/14's width 768 over
+   the pipeline's DINO rows (8 x 1297) and depth rows (8 x 1370). Each
+   against its plain version (the stream and the gate bit for bit
+   or within an ulp, the norms within f32 rounding of the row plus a bf16
+   ulp), timed beside its bound (bytes over 3.35 TB/s) and beside the eager
+   chain it replaces (the norms, bias adds, layer scales, residual sums, the
+   casts of the norms' f32 output at each projection, SiLU and product); then
+   the totals of one giant block call and of a request's 760; then one
+   8-frame ViT-g/14 forward (seeded weights) with its launches counted: 121
+   row, 40 gate and 40 ViT attention.
 
 ``python3 chip_smoke.py --matcher_recipe OUT.npz [SEED,SEED,...]`` runs, in
 place of the phases, the one-off measurement of the matcher's whole recipe
@@ -270,6 +288,7 @@ from tdspa_torch.kernels.block import (
 )
 from tdspa_torch.kernels.matcher import cost_patches_multi, cost_patches_reference
 from tdspa_torch.kernels import norm as norm_lib
+from tdspa_torch.kernels import vit_block
 from tdspa_torch.data.batch_prep import prepare_2d_batch, prepare_3d_batch
 from tdspa_torch.data.prefetch import to_device
 from tdspa_torch.data.providers import (
@@ -409,6 +428,9 @@ EDGE_SHAPES = [
 # 12 heads of 64) run 8-frame groups: 19 per 150-frame video, whole or in the
 # pipeline's chunks of 40, 40, 40 and 30 frames (5 + 5 + 5 + 4 groups).
 VIT_LAUNCHES = 19 * 12  # per backbone per video
+# ``vit_residual_norm`` launches per backbone per video: three a block and the
+# final norm, per 8-frame group; their MLPs launch no ``swiglu_gate``.
+VIT_NORM_LAUNCHES = 19 * (3 * 12 + 1)
 # (name, B, S, K, H, launches per video): DINO frames are 36x36 patches + CLS,
 # the depth backbone's 37x37 + CLS; K not a multiple of the 64-key tile.
 VIT_SHAPES = [
@@ -1306,9 +1328,14 @@ def _timed_call(fn, *args):
 
 def phase_features(scene) -> dict:
     """DINOv2 features and video depth at full width (ViT-B, seeded weights)
-    on the clean scene's whole video: the ViT kernel's launches, output
-    shapes, depth finite and >= 0, and agreement with the same extractor on
-    plain attention; stage times (the second of two calls)."""
+    on the clean scene's whole video: the ViT attention kernel's and the ViT
+    row kernel's launches, output shapes, depth finite and >= 0, and
+    agreement with the same extractor on plain attention; stage times (the
+    second of two calls). The plain extractors run the same row kernels
+    (``vit_residual_norm``: the norms, bias adds, layer scales and residual
+    sums), so that comparison checks the attention alone; phase
+    vit_block_kernel holds the row kernel to its plain version at both
+    backbones' shapes."""
     video = torch.from_numpy(scene["video"]).cuda()
     dino = DinoFeatureExtractor(device="cuda", seed=SEED)
     dino_plain = DinoFeatureExtractor(device="cuda", seed=SEED, fused_attention=False)
@@ -1321,19 +1348,23 @@ def phase_features(scene) -> dict:
     for name, kernel, plain in (("dino", dino, dino_plain), ("depth", depth, depth_plain)):
         _timed_call(kernel, video)  # warm: library handles and algorithm choices
         vit_attention.launches = 0
+        vit_block.vit_residual_norm.launches = vit_block.swiglu_gate.launches = 0
         out, ms = _timed_call(kernel, video)
         launches = vit_attention.launches
+        block_launches = {"vit_residual_norm": vit_block.vit_residual_norm.launches,
+                          "swiglu_gate": vit_block.swiglu_gate.launches}
         _timed_call(plain, video)
         want, plain_ms = _timed_call(plain, video)
         if vit_attention.launches != launches:
             raise AssertionError(f"the plain {name} extractor launched the ViT kernel")
         finite = bool(torch.isfinite(out).all().item())
         row = dict(stage=name, shape=list(out.shape), dtype=str(out.dtype).removeprefix("torch."),
-                   launches=launches, ms=ms, plain_ms=plain_ms, finite=finite,
-                   min=out.min().item(), max=out.max().item(),
+                   launches=launches, block_launches=block_launches, ms=ms, plain_ms=plain_ms,
+                   finite=finite, min=out.min().item(), max=out.max().item(),
                    vs_plain=dict(_rel_err(out, want), rtol=FEATURES_RTOL))
         emit("features", **row)
-        if row["shape"] != expected[name] or not finite or launches != VIT_LAUNCHES:
+        if row["shape"] != expected[name] or not finite or launches != VIT_LAUNCHES \
+                or block_launches != {"vit_residual_norm": VIT_NORM_LAUNCHES, "swiglu_gate": 0}:
             raise AssertionError(f"{name} features wrong: {row}")
         if name == "depth" and row["min"] < 0:
             raise AssertionError(f"negative depth: {row}")
@@ -1363,9 +1394,7 @@ def phase_pipeline_full(scene) -> dict:
         return out
 
     tracker.track_chunks = recording
-    counters = {"vit_attention": vit_attention, "attention": fused_masked_attention,
-                "bilinear": bilinear_kernel, "lk": lk_kernel.track_video_lk_kernel,
-                "matcher": cost_patches_multi}
+    counters = _pipeline_counters()
     for fn in counters.values():
         fn.launches = 0
     timings = []
@@ -1373,7 +1402,8 @@ def phase_pipeline_full(scene) -> dict:
         results = pipe.run_on_frames(scene["video"])
         timings.append({k: v * 1e3 for k, v in results["timings"].items()})
     launches = {name: fn.launches for name, fn in counters.items()}
-    per_run = {"vit_attention": 2 * VIT_LAUNCHES, "attention": FORWARD_LAUNCHES,
+    per_run = {"vit_attention": 2 * VIT_LAUNCHES, "vit_residual_norm": 2 * VIT_NORM_LAUNCHES,
+               "swiglu_gate": 0, "attention": FORWARD_LAUNCHES,
                "bilinear": TAIL_BILINEAR_LAUNCHES, "lk": CHUNK_LAUNCHES, "matcher": 0}
     preds = results["predictions"]
     shapes = {"dino_grid": list(results["dino_grid"].shape), "depth": list(results["depth"].shape),
@@ -1771,7 +1801,8 @@ def phase_mesh(batch_3d) -> dict:
 
 
 def _pipeline_counters() -> dict:
-    return {"vit_attention": vit_attention, "attention": fused_masked_attention,
+    return {"vit_attention": vit_attention, "vit_residual_norm": vit_block.vit_residual_norm,
+            "swiglu_gate": vit_block.swiglu_gate, "attention": fused_masked_attention,
             "bilinear": bilinear_kernel, "lk": lk_kernel.track_video_lk_kernel,
             "matcher": cost_patches_multi}
 
@@ -1780,7 +1811,8 @@ def phase_video_entry(scene, full) -> dict:
     """The clean scene as an mp4 file through ``run_inference`` and the infer
     CLI, on the card, with their launches and the reference's output files."""
     counters = _pipeline_counters()
-    per_run = {"vit_attention": 2 * VIT_LAUNCHES, "attention": FORWARD_LAUNCHES,
+    per_run = {"vit_attention": 2 * VIT_LAUNCHES, "vit_residual_norm": 2 * VIT_NORM_LAUNCHES,
+               "swiglu_gate": 0, "attention": FORWARD_LAUNCHES,
                "bilinear": TAIL_BILINEAR_LAUNCHES, "lk": CHUNK_LAUNCHES}
     rows = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2347,6 +2379,171 @@ def phase_norm_kernel() -> dict:
         del x, scale
         torch.cuda.empty_cache()
     return rows_out
+
+
+# ViT-g/14 on the extractor's 8-frame groups: 8 x 1297 tokens, width 1536,
+# SwiGLU 2 x 4096; a request (150 frames in 19 groups) makes 760 block calls.
+VIT_BLOCK_ROWS, VIT_BLOCK_WIDTH, VIT_BLOCK_HIDDEN = 8 * 1297, 1536, 4096
+VIT_BLOCK_CALLS_PER_REQUEST = 19 * 40
+# The row kernel's shapes: (name, rows, width). The giant's, then ViT-B/14's
+# on the pipeline's 8-frame groups: DINO (36 x 36 patches + CLS) and the
+# depth backbone (37 x 37 + CLS).
+VIT_ROW_SHAPES = [("vitg", VIT_BLOCK_ROWS, VIT_BLOCK_WIDTH), ("vitb_dino", 8 * 1297, 768),
+                  ("vitb_depth", 8 * 1370, 768)]
+# The row kernel's launches: (name, residual, norm dtype, launches a block
+# call, projections that cast the eager norm's f32 output to bf16).
+VIT_ROW_LAUNCHES = [("norm1", False, torch.bfloat16, 1, 3),
+                    ("attention_residual_norm2", True, torch.bfloat16, 1, 1),
+                    ("ffn_residual", True, None, 1, 0),
+                    ("final_norm", False, torch.float32, 0, 0)]
+# One 8-frame ViT-g/14 forward: three row launches a block and the final
+# norm, one gate and one attention a block.
+VITG_FORWARD_LAUNCHES = {"vit_residual_norm": 3 * 40 + 1, "swiglu_gate": 40,
+                         "vit_attention": 40}
+
+
+def _vit_eager_rows(x, h, bias, layer_scale, ln, residual, casts):
+    """The eager chain one row launch replaces: the projection's bias add
+    (bf16), the f32 layer scale and residual sum, ``core/layers.py``'s
+    LayerNorm in f32 and each projection's cast of it to bf16."""
+    if residual:
+        x = x + (h + bias.to(torch.bfloat16)) * layer_scale
+    if ln is None:
+        return x
+    out = ln(x)
+    return x, [out.to(torch.bfloat16) for _ in range(casts)] or out
+
+
+def _vit_row_launches(tag: str, rows: int, width: int, gen) -> dict:
+    """The row kernel's four launches over an f32 [rows, width] stream with
+    bf16 projections: each against ``vit_residual_norm_reference`` (the
+    stream bit for bit, the norm within f32 rounding of the row plus a bf16
+    ulp), timed beside its bound and the eager chain."""
+    from tdspa_torch.core.layers import LayerNorm
+
+    x = torch.randn((rows, width), generator=gen, device="cuda") * 3 + 0.5
+    h = torch.randn((rows, width), generator=gen, device="cuda").to(torch.bfloat16)
+    bias, layer_scale, scale, norm_bias = (
+        torch.randn(width, generator=gen, device="cuda") * 0.5 + 0.5 for _ in range(4))
+    norm = (scale, norm_bias, 1e-6)
+    ln = LayerNorm(width, 1e-6, torch.float32, "cuda")
+    with torch.no_grad():
+        ln.scale.copy_(scale)
+        ln.bias.copy_(norm_bias)
+    out_rows = {}
+    for name, residual, out_dtype, per_block, casts in VIT_ROW_LAUNCHES:
+        emit("vit_block_kernel", backbone=tag, shape=name)
+        res = (h, bias, layer_scale) if residual else None
+        nrm = norm if out_dtype is not None else None
+        out_dtype = out_dtype or torch.float32
+        with torch.inference_mode():
+            got = vit_block.vit_residual_norm(x, res, nrm, out_dtype)
+            want = vit_block.vit_residual_norm_reference(x, res, nrm, out_dtype)
+            torch.cuda.synchronize()
+            got, want = (t if isinstance(t, tuple) else (t,) for t in (got, want))
+            stream_equal = (not residual) or torch.equal(got[0], want[0])
+            err = _row_rel_err(got[-1], want[-1]) if nrm is not None else 0.0
+            tol = NORM_REL_ATOL + (2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0)
+            del got, want
+            ms = cuda_ms(lambda: vit_block.vit_residual_norm(x, res, nrm, out_dtype), iters=20)
+            eager_ms = cuda_ms(lambda: _vit_eager_rows(x, h, bias, layer_scale,
+                                                       ln if nrm else None, residual, casts),
+                               iters=5)
+        elements = rows * width
+        nbytes = elements * (4 + (2 + 4 if residual else 0)
+                             + (out_dtype.itemsize if nrm is not None else 0)) + 4 * width * 4
+        row = dict(backbone=tag, shape=[rows, width], residual=residual,
+                   norm_dtype=str(out_dtype).removeprefix("torch.") if nrm else None,
+                   plan=vit_block.plan(width), stream_equal=stream_equal, max_row_rel_err=err,
+                   tol=tol, ms=ms, eager_ms=eager_ms, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                   launches_per_block_call=per_block)
+        row["roofline_share"] = row["bound_ms"] / ms
+        emit("vit_block_kernel", **row)
+        if not stream_equal or err > tol:
+            raise AssertionError(f"ViT row kernel disagrees with its plain version: {tag} "
+                                 f"{name} {row}")
+        out_rows[name] = row
+    del x, h
+    torch.cuda.empty_cache()
+    return out_rows
+
+
+def _vitg_forward_launches() -> dict:
+    """One 8-frame ViT-g/14 forward (504 x 504 frames, seeded weights, bf16
+    compute over an f32 stream) with its launches counted; a finite f32
+    output."""
+    from tdspa_torch.core.layers import init_parameters
+    from tdspa_torch.features.vit import Dinov2, ViTConfig
+
+    model = Dinov2(ViTConfig.preset("vitg"), dtype=torch.bfloat16, residual_dtype=torch.float32,
+                   device="cuda")
+    init_parameters(model, SEED, "cuda")
+    pixels = torch.rand((8, 504, 504, 3), generator=torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda")
+    counters = {"vit_residual_norm": vit_block.vit_residual_norm,
+                "swiglu_gate": vit_block.swiglu_gate, "vit_attention": vit_attention}
+    with torch.inference_mode():
+        model(pixels)  # warm: library handles and algorithm choices
+        for fn in counters.values():
+            fn.launches = 0
+        out, ms = _timed_call(model, pixels)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    row = dict(frames=8, launches=launches, expected=VITG_FORWARD_LAUNCHES, ms=ms,
+               dtype=str(out.dtype).removeprefix("torch."),
+               finite=bool(torch.isfinite(out).all().item()))
+    emit("vit_block_kernel", forward="vitg", **row)
+    if launches != VITG_FORWARD_LAUNCHES or not row["finite"] or out.dtype != torch.float32:
+        raise AssertionError(f"ViT-g/14 forward: {row}")
+    del model, pixels, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_vit_block_kernel() -> dict:
+    """``csrc/vit_block.cu`` at ViT-g/14's and ViT-B/14's shapes against the
+    plain versions, timed beside the bounds and the eager chain they replace;
+    one ViT-g/14 forward's launches."""
+    rows, hidden = VIT_BLOCK_ROWS, VIT_BLOCK_HIDDEN
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    by_backbone = {tag: _vit_row_launches(tag, n, width, gen) for tag, n, width in VIT_ROW_SHAPES}
+    out_rows = dict(by_backbone["vitg"])
+    block = {k: sum(r["launches_per_block_call"] * r[k] for r in out_rows.values())
+             for k in ("ms", "eager_ms", "bound_ms")}
+
+    emit("vit_block_kernel", shape="swiglu_gate")
+    y = (torch.randn((rows, 2 * hidden), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+    gate_bias = torch.randn(2 * hidden, generator=gen, device="cuda") * 0.5
+    with torch.inference_mode():
+        got = vit_block.swiglu_gate(y, gate_bias)
+        want = vit_block.swiglu_gate_reference(y, gate_bias)
+        torch.cuda.synchronize()
+        off = (got.float() - want.float()).abs()
+        # One bf16 ulp: 2**-7 of the value at most (exp may round apart).
+        ulp_ok = bool((off <= want.float().abs() * 2.0 ** -7).all())
+        del got, want, off
+        ms = cuda_ms(lambda: vit_block.swiglu_gate(y, gate_bias), iters=20)
+        eager_ms = cuda_ms(lambda: vit_block.swiglu_gate_reference(y, gate_bias), iters=5)
+    nbytes = rows * hidden * (2 * 2 + 2) + 2 * hidden * 4
+    row = dict(shape=[rows, 2 * hidden], within_an_ulp=ulp_ok, ms=ms, eager_ms=eager_ms,
+               bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, launches_per_block_call=1)
+    row["roofline_share"] = row["bound_ms"] / ms
+    emit("vit_block_kernel", **row)
+    if not ulp_ok:
+        raise AssertionError(f"SwiGLU gate kernel disagrees with its plain version: {row}")
+    out_rows["swiglu_gate"] = row
+    for k in block:
+        block[k] += row[k]
+    del y
+    torch.cuda.empty_cache()
+    final = out_rows["final_norm"]
+    per_request = {k: VIT_BLOCK_CALLS_PER_REQUEST * v + 19 * final[k] for k, v in block.items()}
+    totals = dict(block_call=block, request=per_request,
+                  block_roofline_share=block["bound_ms"] / block["ms"],
+                  calls_per_request=VIT_BLOCK_CALLS_PER_REQUEST)
+    emit("vit_block_kernel", **totals)
+    forward = _vitg_forward_launches()
+    return {"rows": out_rows, "vitb": {k: by_backbone[k] for k in ("vitb_dino", "vitb_depth")},
+            "vitg_forward": forward, **totals}
 
 
 def phase_serving(path, knob: str) -> dict:
@@ -3411,6 +3608,7 @@ def main() -> int:
     quant_totals = phase_quant_kernel()
     block_totals = phase_block_kernel(totals["shape_ms"])
     norm_rows = phase_norm_kernel()
+    vit_block_rows = phase_vit_block_kernel()
     path = phase_pipeline()
     bilinear_totals = phase_bilinear_kernel(path["providers"])
     quantized = phase_serving(path, "quantize")
@@ -3675,6 +3873,31 @@ def main() -> int:
                      for name, r in norm_rows.items()},
         "per": ("one LayerNorm of the tail's encoder, [309248, 384] f32 -> bf16; launches "
                 f"counted over {RUNS} pipeline runs"),
+    })
+    kernels.append({
+        "name": "vit_residual_norm + swiglu_gate",
+        "route": "cuda",
+        "source": "tdspa_torch/csrc/vit_block.cu",
+        "replaces": None,
+        "launches": {k: full_launches[k] for k in ("vit_residual_norm", "swiglu_gate")},
+        "launches_by_path": {
+            "pipeline_full": {k: full_launches[k] for k in ("vit_residual_norm", "swiglu_gate")},
+            "vitg_forward": {k: vit_block_rows["vitg_forward"]["launches"][k]
+                             for k in ("vit_residual_norm", "swiglu_gate")}},
+        "ms": vit_block_rows["block_call"]["ms"],
+        "eager_ms": vit_block_rows["block_call"]["eager_ms"],
+        "bound_ms": vit_block_rows["block_call"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "by_shape": {name: {k: r[k] for k in r if k.endswith("ms") or k.endswith("share")}
+                     for name, r in vit_block_rows["rows"].items()},
+        "request": vit_block_rows["request"],
+        "vitb_by_shape": {tag: {name: {k: r[k] for k in r if k.endswith("ms") or k.endswith("share")}
+                                for name, r in rows.items()}
+                          for tag, rows in vit_block_rows["vitb"].items()},
+        "per": ("one ViT-g/14 block call on 8 frames (3 row launches and 1 gate); launches "
+                f"counted over {RUNS} pipeline runs (ViT-B DINO and depth) and over one 8-frame "
+                "ViT-g/14 forward"),
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

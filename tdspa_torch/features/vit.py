@@ -19,10 +19,14 @@ Attention on CUDA tensors runs the maskless Hopper kernel
 (``tdspa_torch/kernels/attention.py::vit_attention``, the counterpart of the
 TPU's ``_flash_perhead``); on the CPU, or with ``use_fused=False``, it is the
 JAX package's XLA path: q scaled in the compute dtype before the product,
-f32 softmax.
+f32 softmax. The blocks' norms, bias adds, layer scales, residual sums and
+SwiGLU gate, and the final norm, run ``kernels/vit_block.py`` (its kernels on
+CUDA tensors, its plain versions, the eager chain, on CPU tensors).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 from tdspa_torch.core.attention import Dense, DenseGeneral, masked_dot_product_attention
 from tdspa_torch.core.layers import Conv, LayerNorm
 from tdspa_torch.kernels.attention import vit_attention
+from tdspa_torch.kernels.vit_block import swiglu_gate, vit_residual_norm
 from tdspa_torch.ops.resize import resize, resize_torch_bicubic
 from tdspa_torch.utils.profiling import span
 
@@ -103,13 +108,35 @@ class _Attention(nn.Module):
                                                dtype, device))
         self.output = DenseGeneral((num_heads, head_dim), (hidden_size,), True, dtype, device)
 
-    def forward(self, x):
+    def heads(self, x):
+        """The attention's heads [B S H Dh], before the output projection. The
+        kernel writes bf16 where the compute dtype or ``kernel_out_dtype`` is
+        bf16: its f32 value rounded once, as the cast after an f32 output
+        rounded it."""
         q, k, v = self.query(x), self.key(x), self.value(x)  # [B S H Dh]
         if self.use_fused and q.is_cuda:
+            out_dtype = (torch.bfloat16 if torch.bfloat16 in (self.dtype, self.kernel_out_dtype)
+                         else torch.float32)
             out = vit_attention(*(t.to(torch.bfloat16).contiguous() for t in (q, k, v)),
-                                out_dtype=self.kernel_out_dtype)
-            return self.output(out.to(self.dtype))
-        return self.output(masked_dot_product_attention(q, k, v, compute_dtype=self.dtype))
+                                out_dtype=out_dtype)
+            return out.to(self.dtype)
+        return masked_dot_product_attention(q, k, v, compute_dtype=self.dtype)
+
+    def forward(self, x):
+        return self.output(self.heads(x))
+
+
+def _unbiased(dense: DenseGeneral, x):
+    """``dense(x)`` without its bias, which a ``vit_residual_norm`` or
+    ``swiglu_gate`` launch adds (``dense``'s output shape is one axis)."""
+    n_in = math.prod(dense.in_shape)
+    lead = x.shape[: x.dim() - len(dense.in_shape)]
+    return x.to(dense.dtype).reshape(lead + (n_in,)) @ dense.kernel.to(dense.dtype).reshape(
+        n_in, -1)
+
+
+def _norm_args(norm: LayerNorm):
+    return norm.scale, norm.bias, norm.eps
 
 
 class _Block(nn.Module):
@@ -117,14 +144,24 @@ class _Block(nn.Module):
     statistics stay f32), ``gelu_approximate`` swaps HF's erf GELU for tanh
     (the MLP's). The SwiGLU FFN is ``weights_out(silu(x1) * x2)`` with
     ``x1, x2`` the halves of ``weights_in(x)``, in the compute dtype.
-    Spans: ``tdspa.vit.attention`` (norm1, attention, layer scale, residual)
-    and ``tdspa.vit.ffn`` (norm2, FFN, layer scale, residual)."""
+
+    A call is three ``vit_residual_norm`` launches: norm1, written in the
+    compute dtype the projections read; the attention's output bias, layer
+    scale and residual with norm2, in one pass; the FFN's output bias, layer
+    scale and residual. The output projection and the FFN's last GEMM run
+    without their bias, which those launches add; the SwiGLU's gate is one
+    ``swiglu_gate`` launch. An f32 compute dtype over a bf16 stream widens the
+    stream to f32 inside the block, which no kernel takes: that block runs
+    the eager chain (``_forward_widening``).
+    Spans: ``tdspa.vit.attention`` (norm1, attention, then the launch that
+    adds its residual and computes norm2) and ``tdspa.vit.ffn`` (FFN, layer
+    scale, residual)."""
 
     def __init__(self, config: ViTConfig, dtype=torch.float32, residual_dtype=torch.float32,
                  gelu_approximate: bool = False, use_fused: bool = True, device="cpu"):
         super().__init__()
         c = config
-        self.residual_dtype = residual_dtype
+        self.dtype, self.residual_dtype = dtype, residual_dtype
         self.gelu = "tanh" if gelu_approximate else "none"
         self.layerscale_value = c.layerscale_value
         self.norm1 = LayerNorm(c.hidden_size, c.layer_norm_eps, residual_dtype, device)
@@ -147,22 +184,43 @@ class _Block(nn.Module):
             self.layer_scale1.fill_(self.layerscale_value)
             self.layer_scale2.fill_(self.layerscale_value)
 
+    @property
+    def ffn_out(self) -> DenseGeneral:
+        return self.weights_out if self.swiglu else self.fc2
+
     def ffn(self, x):
+        """The FFN's output without ``ffn_out``'s bias (the residual launch
+        adds it)."""
         if self.swiglu:
-            x1, x2 = self.weights_in(x).chunk(2, dim=-1)
-            return self.weights_out(F.silu(x1) * x2)
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.gelu))
+            return _unbiased(self.weights_out,
+                             swiglu_gate(_unbiased(self.weights_in, x), self.weights_in.bias))
+        return _unbiased(self.fc2, F.gelu(self.fc1(x), approximate=self.gelu))
 
     def forward(self, x):
         rd = self.residual_dtype
-        # The f32 layer-scale parameters are cast down rather than promoting
-        # the residual back to f32.
+        if torch.promote_types(self.dtype, rd) != rd:
+            return self._forward_widening(x)
+        # The f32 layer-scale parameters are cast to the stream's dtype rather
+        # than promoting it back to f32.
+        with span("tdspa.vit.attention"):
+            h = vit_residual_norm(x, norm=_norm_args(self.norm1), out_dtype=self.dtype)
+            h = _unbiased(self.attention.output, self.attention.heads(h))
+            x, h = vit_residual_norm(x.to(rd), (h, self.attention.output.bias, self.layer_scale1),
+                                     _norm_args(self.norm2), self.dtype)
+        with span("tdspa.vit.ffn"):
+            return vit_residual_norm(x, (self.ffn(h), self.ffn_out.bias, self.layer_scale2))
+
+    def _forward_widening(self, x):
+        """The eager chain of an f32 compute dtype over a bf16 stream: the
+        attention's residual sum takes the f32 product unrounded and leaves
+        the stream f32; the FFN's rounds its product to bf16."""
+        rd = self.residual_dtype
         with span("tdspa.vit.attention"):
             h = self.attention(self.norm1(x)) * self.layer_scale1.to(rd)
             x = x.to(rd) + h
         with span("tdspa.vit.ffn"):
-            h = self.ffn(self.norm2(x)) * self.layer_scale2.to(rd)
-            return x + h.to(rd)
+            h = self.ffn(self.norm2(x)) + self.ffn_out.bias.to(self.dtype)
+            return x + (h * self.layer_scale2.to(rd)).to(rd)
 
 
 def interpolate_pos_embed(pos_embed, new_height: int, new_width: int, mode: str = "jax"):
@@ -229,7 +287,7 @@ class Dinov2(nn.Module):
             if i in taps:
                 tapped[i] = x
         with span("tdspa.vit.final_norm"):
-            out = self.layernorm(x)
+            out = vit_residual_norm(x, norm=_norm_args(self.layernorm), out_dtype=torch.float32)
         return (out, [tapped[i] for i in taps]) if taps else out
 
     def patch_grid(self, pixel_values):

@@ -29,11 +29,13 @@ NVCC_FLAGS = (
 )
 # Extra flags per source. --fmad=false keeps a kernel from fusing a product
 # and a sum into one rounding: the LK kernel's thresholded decisions then see
-# the values its plain version computes, and the bilinear kernel equals the
-# plain gather bit for bit.
-EXTRA_FLAGS = {"lk": ("--fmad=false",), "bilinear": ("--fmad=false",)}
+# the values its plain version computes, the bilinear kernel equals the plain
+# gather bit for bit, and the ViT block's residual stream equals the eager
+# chain's.
+EXTRA_FLAGS = {"lk": ("--fmad=false",), "bilinear": ("--fmad=false",),
+               "vit_block": ("--fmad=false",)}
 KERNELS = ("attention", "vit_attention", "lk", "matcher", "quant_matmul", "block", "bilinear",
-           "attention_backward", "norm")
+           "attention_backward", "norm", "vit_block")
 
 
 def flags(name: str) -> tuple[str, ...]:

@@ -10,7 +10,9 @@ Tolerances: kernel vs plain version as in ``tests/test_torch_attention.py``
 the fused block; the attention's backward kernel within 2e-2 of each
 gradient's largest value (it rounds g and dS to bf16 as tensor-core
 operands, then each output to bf16); the int8 and bilinear kernels equal their plain versions
-bit for bit; the tiny bf16 model or ViT with the kernel vs the same one with
+bit for bit; the ViT block's row kernel equals its plain version's stream bit
+for bit, and its norm within f32 rounding of the row plus a bf16 ulp; the
+SwiGLU gate within an ulp; the tiny bf16 model or ViT with the kernel vs the same one with
 the plain attention path, 5e-2 of the output range (the two round
 differently inside every attention).
 """
@@ -876,3 +878,245 @@ def test_vitg_block_matches_the_plain_reference(cuda_device):
     gap = torch.linalg.vector_norm(got - want, dim=-1)
     worst = float(gap.max() / torch.linalg.vector_norm(want - x, dim=-1).median())
     assert worst < 2e-2, worst
+
+
+def _ulps(got, want) -> int:
+    """The largest distance between got and want in units in the last place
+    of their dtype (bf16 or f32)."""
+    bits, magnitude = {torch.bfloat16: (torch.int16, 0x7FFF),
+                       torch.float32: (torch.int32, 0x7FFFFFFF)}[want.dtype]
+
+    def line(t):  # sign and magnitude onto one integer line (-0 = +0)
+        i = t.contiguous().view(bits).to(torch.int64)
+        return torch.where(i < 0, -(i & magnitude), i)
+
+    return int((line(got) - line(want)).abs().max())
+
+
+# (rows, width, x dtype, h dtype): ViT-S/B/L/g widths over 777 rows (no
+# multiple of a block's rows), ViT-g's full shape, 8 frames of 1297 tokens,
+# and ViT-B's as the pipeline runs it: DINO's 8 x 1297 and the depth
+# backbone's 8 x 1370 tokens.
+VIT_ROW_SHAPES = [(777, w, x, h) for w in (384, 768, 1024, 1536)
+                  for x, h in ((torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+                               (torch.bfloat16, torch.bfloat16))] + [
+    (10376, 1536, torch.float32, torch.bfloat16), (10376, 768, torch.float32, torch.bfloat16),
+    (10960, 768, torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width,x_dtype,h_dtype", VIT_ROW_SHAPES)
+def test_vit_residual_norm_kernel_matches_plain_version(cuda_device, rows, width, x_dtype,
+                                                         h_dtype):
+    """``csrc/vit_block.cu``'s row kernel against its plain version on the
+    card, with and without the residual prologue, both norm dtypes: the
+    stream x' equal bit for bit (built with --fmad=false); the norm within
+    f32 rounding of each row's largest value (1e-5, the row's sums add in
+    another order) plus a bf16 ulp where it is bf16. One launch a call."""
+    from tdspa_torch.kernels import vit_block
+
+    gen = torch.Generator(device=cuda_device).manual_seed(width)
+    x = (torch.randn((rows, width), generator=gen, device=cuda_device) * 3 + 0.5).to(x_dtype)
+    h = torch.randn((rows, width), generator=gen, device=cuda_device).to(h_dtype)
+    bias, layer_scale, scale, norm_bias = (
+        torch.randn(width, generator=gen, device=cuda_device) * 0.5 + 0.5 for _ in range(4))
+    residual, norm = (h, bias, layer_scale), (scale, norm_bias, 1e-6)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        rtol = 2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5
+        before = vit_block.vit_residual_norm.launches
+        with torch.inference_mode():
+            got = vit_block.vit_residual_norm(x, norm=norm, out_dtype=out_dtype)
+            got_x, got_both = vit_block.vit_residual_norm(x, residual, norm, out_dtype)
+            got_res = vit_block.vit_residual_norm(x, residual)
+        torch.cuda.synchronize()
+        assert vit_block.vit_residual_norm.launches == before + 3
+        want = vit_block.vit_residual_norm_reference(x, norm=norm, out_dtype=out_dtype)
+        want_x, want_both = vit_block.vit_residual_norm_reference(x, residual, norm, out_dtype)
+        assert got_x.dtype == x_dtype and torch.equal(got_x, want_x)
+        assert torch.equal(got_res, want_x)
+        _close_rows(got, want, 1e-5, rtol)
+        _close_rows(got_both, want_both, 1e-5, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,hidden,dtype", [(777, 128, torch.bfloat16),
+                                               (777, 4096, torch.bfloat16),
+                                               (777, 4096, torch.float32),
+                                               (10376, 4096, torch.bfloat16)])
+def test_swiglu_gate_kernel_matches_plain_version(cuda_device, rows, hidden, dtype):
+    """The gate kernel against ``F.silu(y1) * y2`` on the biased halves (the
+    plain version) on the card, ViT-g's full [10376, 8192] among the shapes:
+    within one ulp of the dtype (the same roundings; only exp may differ)."""
+    from tdspa_torch.kernels import vit_block
+
+    gen = torch.Generator(device=cuda_device).manual_seed(hidden)
+    y = (torch.randn((rows, 2 * hidden), generator=gen, device=cuda_device) * 2).to(dtype)
+    bias = torch.randn(2 * hidden, generator=gen, device=cuda_device) * 0.5
+    before = vit_block.swiglu_gate.launches
+    with torch.inference_mode():
+        got = vit_block.swiglu_gate(y, bias)
+    want = vit_block.swiglu_gate_reference(y, bias)
+    assert vit_block.swiglu_gate.launches == before + 1
+    assert got.dtype == dtype and got.shape == (rows, hidden)
+    assert _ulps(got, want) <= 1
+
+
+@pytest.mark.cuda
+def test_swiglu_gate_kernel_equals_f_silu_on_every_bf16_value(cuda_device):
+    """The bf16 gate's SiLU (the fast intrinsics above -80, the exact path
+    below) against ``F.silu`` for every finite bf16 value as the first half
+    (bias 0, second half 1): equal bit for bit, so the kernel rounds as the
+    eager chain does on any input."""
+    from tdspa_torch.kernels import vit_block
+
+    bits = torch.arange(-2 ** 15, 2 ** 15, device=cuda_device, dtype=torch.int32)
+    values = bits.to(torch.int16).view(torch.bfloat16)
+    values = values[torch.isfinite(values.float())]
+    values = values[: values.numel() // 8 * 8].reshape(-1, 8)
+    y = torch.cat([values, torch.ones_like(values)], dim=-1)
+    bias = torch.zeros(16, device=cuda_device)
+    with torch.inference_mode():
+        got = vit_block.swiglu_gate(y, bias)
+    want = vit_block.swiglu_gate_reference(y, bias)
+    assert values.numel() > 65000
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1297, 1297, 24), (2, 77, 1000, 4)])
+def test_vit_kernel_bf16_out_is_the_f32_out_rounded(cuda_device, shape):
+    """``vit_attention`` writing bf16 (what the ViT block asks for) equals its
+    f32 output cast to bf16 (what the block did before), bit for bit: both
+    round the same f32 value once."""
+    from tdspa_torch.kernels.attention import vit_attention
+
+    q, k, v, _ = _inputs(cuda_device, *shape, 64, False)
+    with torch.inference_mode():
+        got = vit_attention(q, k, v, out_dtype=torch.bfloat16)
+        want = vit_attention(q, k, v, out_dtype=torch.float32).to(torch.bfloat16)
+    assert torch.equal(got, want)
+
+
+def _seeded_vit(name, device, seed=0):
+    from tdspa_torch.core.layers import init_parameters
+    from tdspa_torch.features.vit import Dinov2, ViTConfig
+
+    model = Dinov2(ViTConfig.preset(name), dtype=torch.bfloat16, residual_dtype=torch.float32,
+                   device=device)
+    init_parameters(model, seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():  # biases, norms and layer scales away from their init
+        for p in model.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen, device=device))
+    return model
+
+
+def _card_heads(att, q, k, v):
+    """The attention's heads as the block took them before the kernels: the
+    ViT kernel writing ``kernel_out_dtype`` (f32), then cast."""
+    from tdspa_torch.kernels.attention import vit_attention
+
+    out = vit_attention(*(t.to(torch.bfloat16).contiguous() for t in (q, k, v)),
+                        out_dtype=att.kernel_out_dtype)
+    return out.to(att.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,row_launches,gate_launches", [("vitg", 3, 1), ("vitb", 3, 0)])
+def test_full_width_vit_block_matches_the_eager_chain(cuda_device, name, row_launches,
+                                                      gate_launches):
+    """A ViT-g/14 (SwiGLU) and a ViT-B/14 (MLP) block at their published
+    widths on 8 frames of 1297 tokens, bf16 products and an f32 stream, as the
+    extractor runs them, against the block's code before the kernels
+    (``tests/test_torch_vit_block.py::eager_block`` with the attention kernel
+    writing f32) on the same weights: the worst token's gap within 1e-2 of
+    the median token's increment. The kernels' norms may round an element a
+    bf16 ulp the other way; everything else is the same arithmetic."""
+    from tdspa_torch.kernels import vit_block
+    from tests.test_torch_vit_block import eager_block
+
+    model = _seeded_vit(name, cuda_device)
+    block = model.layer_0
+    x = torch.randn((8, 1297, model.config.hidden_size),
+                    generator=torch.Generator(device=cuda_device).manual_seed(1),
+                    device=cuda_device)
+    before = vit_block.vit_residual_norm.launches, vit_block.swiglu_gate.launches
+    with torch.inference_mode():
+        got = block(x)
+        counts = (vit_block.vit_residual_norm.launches - before[0],
+                  vit_block.swiglu_gate.launches - before[1])
+        want = eager_block(block, x, heads=_card_heads)
+    assert counts == (row_launches, gate_launches)
+    assert got.dtype == want.dtype == torch.float32
+    gap = torch.linalg.vector_norm(got - want, dim=-1)
+    worst = float(gap.max() / torch.linalg.vector_norm(want - x, dim=-1).median())
+    assert worst < 1e-2, worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,rows,gates,attentions", [("vitg", 121, 40, 40),
+                                                        ("vitb", 37, 0, 12)])
+def test_vit_forward_launch_counts(cuda_device, name, rows, gates, attentions):
+    """One 8-frame forward (504 x 504, 1297 tokens a frame, as the extractor
+    batches them): three row launches a block and the final norm, one gate a
+    SwiGLU block, one attention a block; a finite f32 output."""
+    from tdspa_torch.kernels import vit_block
+    from tdspa_torch.kernels.attention import vit_attention
+
+    model = _seeded_vit(name, cuda_device)
+    pixels = torch.randn((8, 504, 504, 3), generator=torch.Generator(device=cuda_device)
+                         .manual_seed(2), device=cuda_device)
+    before = (vit_block.vit_residual_norm.launches, vit_block.swiglu_gate.launches,
+              vit_attention.launches)
+    with torch.inference_mode():
+        out = model(pixels)
+    after = (vit_block.vit_residual_norm.launches, vit_block.swiglu_gate.launches,
+             vit_attention.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (rows, gates, attentions)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_depth_backbone_taps_match_the_eager_chain(cuda_device):
+    """The depth estimator's ViT-B/14 backbone with its taps (blocks 2, 5, 8,
+    11) on 8 frames of 518 x 518 (37 x 37 patches + CLS), through the
+    kernels: 37 row launches and no gate; each tap is its block's output in
+    the f32 stream, bit for bit; each block against the eager chain on the
+    input it was given (the worst token's gap within 1e-2 of the median
+    token's increment, as the full-width block test); the output within f32
+    rounding of the final norm's plain version on the last block's output."""
+    from tdspa_torch.features.vit import _norm_args
+    from tdspa_torch.kernels import vit_block
+    from tests.test_torch_vit_block import eager_block
+
+    model = _seeded_vit("vitb", cuda_device)
+    taps = (2, 5, 8, 11)
+    seen = {}
+    hooks = [getattr(model, f"layer_{i}").register_forward_hook(
+        lambda module, args, out, i=i: seen.__setitem__(i, (args[0], out)))
+        for i in range(model.config.num_layers)]
+    pixels = torch.rand((8, 518, 518, 3), generator=torch.Generator(device=cuda_device)
+                        .manual_seed(3), device=cuda_device)
+    before = vit_block.vit_residual_norm.launches, vit_block.swiglu_gate.launches
+    with torch.inference_mode():
+        out, tapped = model(pixels, taps=taps)
+    counts = (vit_block.vit_residual_norm.launches - before[0],
+              vit_block.swiglu_gate.launches - before[1])
+    for hook in hooks:
+        hook.remove()
+    assert counts == (37, 0)
+    assert [t.shape for t in tapped] == [torch.Size([8, 1370, 768])] * len(taps)
+    for i, t in zip(taps, tapped):
+        assert t.dtype == torch.float32 and torch.equal(t, seen[i][1])
+    with torch.inference_mode():
+        for i in range(model.config.num_layers):
+            x, got = seen[i]
+            want = eager_block(getattr(model, f"layer_{i}"), x, heads=_card_heads)
+            gap = torch.linalg.vector_norm(got - want, dim=-1)
+            worst = float(gap.max() / torch.linalg.vector_norm(want - x, dim=-1).median())
+            assert worst < 1e-2, (i, worst)
+        final = vit_block.vit_residual_norm_reference(
+            seen[model.config.num_layers - 1][1], norm=_norm_args(model.layernorm),
+            out_dtype=torch.float32)
+    _close_rows(out, final, 1e-5, 0.0)
