@@ -248,6 +248,7 @@ import time
 import numpy as np
 import torch
 
+from benchmark.harness.peaks import PEAK_BF16_FLOPS, PEAK_BYTES_PER_S
 from tdspa_torch.cli import infer as infer_cli
 from tdspa_torch.data.providers import NpzDirectoryProvider
 from tdspa_torch.eval import harness
@@ -314,8 +315,6 @@ from tdspa_torch.train.step import (
 from tdspa_torch.utils.synthetic_video import make_tracking_scene
 
 SEED = 0
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
 SMS = 132  # H100 SXM streaming multiprocessors; read from the card in phase_device

@@ -36,8 +36,8 @@ import torch.nn.functional as F
 
 from tdspa_torch.kernels.attention import fused_attention_fn, fused_masked_attention
 from tdspa_torch.kernels.block import fused_transformer_block, kernel_takes
+from tdspa_torch.kernels.build import records
 from tdspa_torch.kernels.norm import row_norm
-from tdspa_torch.kernels.ops import records
 
 _FILL = torch.finfo(torch.float32).min
 

@@ -24,10 +24,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from tdspa_torch.core.attention import lecun_normal_
-
-
-def _norm(x32, mean, var, eps, scale, bias):
-    return (x32 - mean) * (torch.rsqrt(var + eps) * scale) + bias
+from tdspa_torch.kernels.norm import row_norm_reference
 
 
 class LayerNorm(nn.Module):
@@ -45,10 +42,7 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        mean = x32.mean(-1, keepdim=True)
-        var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean, min=0.0)
-        return _norm(x32, mean, var, self.eps, self.scale, self.bias).to(self.dtype)
+        return row_norm_reference(x, self.scale, True, self.dtype, self.bias, self.eps)
 
 
 class GroupNorm(nn.Module):
@@ -70,7 +64,8 @@ class GroupNorm(nn.Module):
         var = torch.clamp((grouped * grouped).mean((1, 3), keepdim=True) - mean * mean, min=0.0)
         scale = self.scale.reshape(self.num_groups, -1)
         bias = self.bias.reshape(self.num_groups, -1)
-        return _norm(grouped, mean, var, self.eps, scale, bias).reshape(x.shape).to(self.dtype)
+        out = (grouped - mean) * (torch.rsqrt(var + self.eps) * scale) + bias
+        return out.reshape(x.shape).to(self.dtype)
 
 
 class Conv(nn.Module):

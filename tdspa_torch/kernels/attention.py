@@ -38,13 +38,12 @@ its plain version, ``attention_backward_reference``.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
 
 from tdspa_torch.kernels import build
+from tdspa_torch.kernels.build import forward_only, on_cuda, records
 
 _FILL = torch.finfo(torch.float32).min
 
@@ -84,11 +83,20 @@ def _check(q, k, v, key_mask, out_dtype):
         )
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    devices = {t.device for t in (q, k, v)} | (
-        {key_mask.device} if key_mask is not None else set()
-    )
-    if len(devices) != 1:
-        raise ValueError(f"q, k, v and key_mask lie on different devices: {devices}")
+
+
+def _kernel_takes(q, k, v, depth_ok: bool, depths: str):
+    """The attention kernels' common limits: bf16 q/k/v, a head width they
+    take (``depth_ok``, described by ``depths``), S and K > 0."""
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise TypeError(f"kernel takes bf16 q/k/v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not depth_ok or q.shape[1] == 0 or k.shape[1] == 0:
+        raise ValueError(f"kernel takes {depths} and S, K > 0; got {tuple(q.shape)}")
+
+
+def _contiguous_aligned(*tensors):
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
+        raise ValueError("kernel takes contiguous, 16-byte aligned q/k/v (and g)")
 
 
 QUERY_ROWS = 192  # query rows per work item of csrc/attention.cu (three warpgroups of 64)
@@ -118,21 +126,6 @@ def work_plan(batch: int, seq: int, kv_len: int, heads: int, sms: int) -> dict:
             "grid": min(work, sms), "cuda_kernels": 1 if chunks == 1 else 2}
 
 
-# tdspa_attention_forward(q, k, v, mask, out, part_o, part_ml, out_bf16, B, S, K, H, D,
-#                         chunk_tiles, grid, scale, stream) in csrc/attention.cu.
-ARGTYPES = (
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-)
-
-
-@functools.cache
-def _kernel():
-    fn = build.load("attention").tdspa_attention_forward
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def fused_masked_attention(q, k, v, key_mask=None, out_dtype=torch.float32):
     """Fused attention: q [B,S,H,D], k/v [B,K,H,D], key_mask [B,K] -> [B,S,H,D].
 
@@ -146,22 +139,13 @@ def fused_masked_attention(q, k, v, key_mask=None, out_dtype=torch.float32):
     from tdspa_torch.kernels import ops
 
     _check(q, k, v, key_mask, out_dtype)
-    if q.device.type == "cpu":
-        if ops.records(q, k, v):
+    if not on_cuda("fused_masked_attention", q, k, v, key_mask):
+        if records(q, k, v):
             return attention_reference(q, k, v, key_mask, out_dtype)
         return ops.fused_masked_attention(q, k, v, key_mask, out_dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError(f"kernel takes bf16 q/k/v, got {q.dtype}, {k.dtype}, {v.dtype}")
-    depth = q.shape[-1]
-    if depth % 8 or not 8 <= depth <= 128 or q.shape[1] == 0 or k.shape[1] == 0:
-        raise ValueError(f"kernel takes D in 8..128 (multiple of 8) and S, K > 0; got {tuple(q.shape)}")
-    if ops.records(q, k, v):
-        raise NotImplementedError(
-            "fused_masked_attention is forward-only; differentiate through "
-            "fused_attention_fn (f32 output), whose backward is JAX's recompute"
-        )
+    _kernel_takes(q, k, v, q.shape[-1] % 8 == 0 and 8 <= q.shape[-1] <= 128,
+                  "D in 8..128 (multiple of 8)")
+    forward_only("fused_masked_attention (differentiate through fused_attention_fn)", q, k, v)
     if key_mask is not None and key_mask.dtype != torch.bool:
         key_mask = key_mask != 0
     return ops.fused_masked_attention(q, k, v, key_mask, out_dtype)
@@ -171,8 +155,7 @@ def launch(q, k, v, key_mask, out_dtype):
     """The kernel's launch on checked CUDA operands (the op's CUDA
     implementation): contiguous, 16-byte aligned bf16 q/k/v, a bool key mask
     or None."""
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("kernel takes contiguous, 16-byte aligned q/k/v")
+    _contiguous_aligned(q, k, v)
     batch, seq, heads, depth = q.shape
     kv_len = k.shape[1]
     if key_mask is not None:
@@ -187,18 +170,14 @@ def launch(q, k, v, key_mask, out_dtype):
         rows = plan["chunks"] * batch * seq * heads
         part_o = torch.empty((rows, depth), dtype=torch.float32, device=q.device)
         part_ml = torch.empty((rows, 2), dtype=torch.float32, device=q.device)
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            key_mask.data_ptr() if key_mask is not None else None,
-            out.data_ptr(), None if part_o is None else part_o.data_ptr(),
-            None if part_ml is None else part_ml.data_ptr(), int(out_dtype == torch.bfloat16),
-            batch, seq, kv_len, heads, depth, plan["chunk_tiles"], plan["grid"],
-            1.0 / math.sqrt(depth), torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"attention kernel launch failed: CUDA error {rc}")
+    build.launch(
+        "tdspa_attention_forward", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        key_mask.data_ptr() if key_mask is not None else None,
+        out.data_ptr(), None if part_o is None else part_o.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(), int(out_dtype == torch.bfloat16),
+        batch, seq, kv_len, heads, depth, plan["chunk_tiles"], plan["grid"],
+        1.0 / math.sqrt(depth),
+    )
     fused_masked_attention.launches += 1
     return out
 
@@ -207,19 +186,6 @@ fused_masked_attention.launches = 0
 
 VIT_ROWS = 128  # query rows per block of csrc/vit_attention.cu (two warpgroups of 64)
 VIT_HEAD = 64  # the head width it takes (every DINOv2 preset)
-# tdspa_vit_attention_forward(q, k, v, out, out_bf16, B, S, K, H, D,
-#                             q_blocks, scale, stream) in csrc/vit_attention.cu.
-VIT_ARGTYPES = (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-)
-
-
-@functools.cache
-def _vit_kernel():
-    fn = build.load("vit_attention").tdspa_vit_attention_forward
-    fn.argtypes = VIT_ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def vit_attention(q, k, v, out_dtype=torch.float32):
@@ -231,35 +197,20 @@ def vit_attention(q, k, v, out_dtype=torch.float32):
     counts kernel launches (apart from ``fused_masked_attention``'s).
     """
     _check(q, k, v, None, out_dtype)
-    if q.device.type == "cpu":
+    if not on_cuda("vit_attention", q, k, v):
         return attention_reference(q, k, v, None, out_dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError(f"kernel takes bf16 q/k/v, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("kernel takes contiguous, 16-byte aligned q/k/v")
+    _kernel_takes(q, k, v, q.shape[-1] == VIT_HEAD, f"D = {VIT_HEAD}")
+    _contiguous_aligned(q, k, v)
+    forward_only("vit_attention", q, k, v)
     batch, seq, heads, depth = q.shape
-    kv_len = k.shape[1]
-    if depth != VIT_HEAD or seq == 0 or kv_len == 0:
-        raise ValueError(f"kernel takes D = {VIT_HEAD} and S, K > 0; got {tuple(q.shape)}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "vit_attention is forward-only, as JAX's ViT attention kernel is"
-        )
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     if out.numel() == 0:
         return out
-    fn = _vit_kernel()
-    with torch.cuda.device(q.device):
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.bfloat16), batch, seq, kv_len, heads, depth,
-            -(-seq // VIT_ROWS), 1.0 / math.sqrt(depth),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"ViT attention kernel launch failed: CUDA error {rc}")
+    build.launch(
+        "tdspa_vit_attention_forward", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), int(out_dtype == torch.bfloat16), batch, seq, k.shape[1], heads, depth,
+        -(-seq // VIT_ROWS), 1.0 / math.sqrt(depth),
+    )
     vit_attention.launches += 1
     return out
 
@@ -333,19 +284,6 @@ def attention_backward_reference(q, k, v, key_mask, g, needs=(True, True, True))
     return dq, dk, dv
 
 
-# tdspa_attention_backward(q, k, v, mask, g, dq, dk, dv, dq_part, dk_part, dv_part, stats,
-#                          B, S, K, H, D, root, stream) in csrc/attention_backward.cu.
-BACKWARD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-
-
-@functools.cache
-def _backward_kernel():
-    fn = build.load("attention_backward").tdspa_attention_backward
-    fn.argtypes = BACKWARD_ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def backward_rows(depth: int) -> int:
     """Query rows and keys of one work item of ``csrc/attention_backward.cu``:
     192 (three warpgroups of 64) for D <= 96, 128 for D > 96, where four
@@ -375,21 +313,16 @@ def attention_backward(q, k, v, key_mask, g, needs=(True, True, True)):
     _check(q, k, v, key_mask, torch.float32)
     if g.shape != q.shape:
         raise ValueError(f"g must be {tuple(q.shape)}, got {tuple(g.shape)}")
-    if q.device.type == "cpu":
+    if not on_cuda("attention_backward", q, k, v, key_mask, g):
         return attention_backward_reference(q, k, v, key_mask, g, needs)
-    if q.device.type != "cuda" or g.device != q.device:
-        raise ValueError(f"unsupported devices {q.device}, {g.device}")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError(f"kernel takes bf16 q/k/v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    _kernel_takes(q, k, v, q.shape[-1] % 8 == 0 and 8 <= q.shape[-1] <= 128,
+                  "D in 8..128 (multiple of 8)")
     batch, seq, heads, depth = q.shape
     kv_len = k.shape[1]
-    if depth % 8 or not 8 <= depth <= 128 or seq == 0 or kv_len == 0:
-        raise ValueError(f"kernel takes D in 8..128 (multiple of 8) and S, K > 0; got {tuple(q.shape)}")
     g = g.float().contiguous()
     if key_mask is not None:
         key_mask = (key_mask if key_mask.dtype == torch.bool else key_mask != 0).contiguous()
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v, g)):
-        raise ValueError("kernel takes contiguous, 16-byte aligned q/k/v and g")
+    _contiguous_aligned(q, k, v, g)
     grads = [torch.empty(x.shape, dtype=torch.bfloat16, device=q.device) if n else None
              for x, n in zip((q, k, v), needs)]
     if not any(needs):
@@ -405,16 +338,11 @@ def attention_backward(q, k, v, key_mask, g, needs=(True, True, True)):
         parts[3] = torch.empty((k_chunks, batch, heads, seq, 4), dtype=torch.float32,
                                device=q.device)
     ptr = [None if t is None else t.data_ptr() for t in (*grads, *parts)]
-    fn = _backward_kernel()
-    with torch.cuda.device(q.device):
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            key_mask.data_ptr() if key_mask is not None else None, g.data_ptr(), *ptr,
-            batch, seq, kv_len, heads, depth, float(_root(depth, "cpu")),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"attention backward kernel launch failed: CUDA error {rc}")
+    build.launch(
+        "tdspa_attention_backward", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        key_mask.data_ptr() if key_mask is not None else None, g.data_ptr(), *ptr,
+        batch, seq, kv_len, heads, depth, float(_root(depth, "cpu")),
+    )
     attention_backward.launches += 1
     return tuple(grads)
 

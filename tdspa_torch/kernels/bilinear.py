@@ -19,12 +19,10 @@ records the wrapper raises (a kernel's output has no ``grad_fn``).
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from tdspa_torch.kernels import build
+from tdspa_torch.kernels.build import forward_only, on_cuda, records
 
 
 def bilinear_sample_reference(grid, coords, out_dtype=None):
@@ -57,19 +55,6 @@ def bilinear_sample_reference(grid, coords, out_dtype=None):
     return out if out_dtype is None else out.to(out_dtype)
 
 
-# tdspa_bilinear_sample(grid, coords, out, grid_bf16, out_bf16, T, H, W, C, N,
-#                       stream) in csrc/bilinear.cu.
-ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-
-
-@functools.cache
-def _kernel():
-    fn = build.load("bilinear").tdspa_bilinear_sample
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def bilinear_sample(grid, coords, out_dtype=None):
     """grid [T, H, W, C] sampled at coords [N, T, 2] (x, y) -> [N, T, C].
 
@@ -87,24 +72,15 @@ def bilinear_sample(grid, coords, out_dtype=None):
             or coords.shape[1] != grid.shape[0]:
         raise ValueError(f"expected grid [T,H,W,C] and coords [N,T,2]; got {tuple(grid.shape)}, "
                          f"{tuple(coords.shape)}")
-    if grid.device != coords.device:
-        raise ValueError(f"grid and coords lie on different devices: {grid.device}, "
-                         f"{coords.device}")
-    if grid.device.type == "cpu":
-        if ops.records(grid, coords):
+    if not on_cuda("bilinear_sample", grid, coords):
+        if records(grid, coords):
             return bilinear_sample_reference(grid, coords, out_dtype)
         return ops.bilinear_sample(grid, coords, out_dtype)
-    if grid.device.type != "cuda":
-        raise ValueError(f"unsupported device {grid.device}")
     if grid.dtype not in (torch.float32, torch.bfloat16) or coords.dtype != torch.float32 \
             or out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel takes an f32/bf16 grid, f32 coords and an f32/bf16 output; "
                         f"got {grid.dtype}, {coords.dtype}, {out_dtype}")
-    if ops.records(grid, coords):
-        raise NotImplementedError(
-            "bilinear_sample is forward-only on CUDA tensors: its output would carry no "
-            "gradient; differentiate through bilinear_sample_reference"
-        )
+    forward_only("bilinear_sample", grid, coords)
     return ops.bilinear_sample(grid, coords, out_dtype)
 
 
@@ -116,15 +92,9 @@ def launch(grid, coords, out_dtype):
     out = torch.empty((n, frames, channels), dtype=out_dtype, device=grid.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(grid.device):
-        rc = _kernel()(
-            grid.data_ptr(), coords.data_ptr(), out.data_ptr(),
-            int(grid.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            frames, height, width, channels, n,
-            torch.cuda.current_stream(grid.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"bilinear kernel launch failed: CUDA error {rc}")
+    build.launch("tdspa_bilinear_sample", grid.device, grid.data_ptr(), coords.data_ptr(),
+                 out.data_ptr(), int(grid.dtype == torch.bfloat16),
+                 int(out_dtype == torch.bfloat16), frames, height, width, channels, n)
     bilinear_sample.launches += 1
     return out
 

@@ -37,8 +37,6 @@ raise; CPU tensors run ``block_reference``.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
@@ -46,6 +44,7 @@ import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
 from tdspa_torch.kernels import build
+from tdspa_torch.kernels.build import forward_only, on_cuda, records
 
 HEAD_DIMS = (32, 64, 96, 128)
 MAX_SEQ = 256  # all keys of an (item, head) in shared memory, their logits in registers
@@ -213,20 +212,6 @@ def block_reference(x, ops, heads: int, out_dtype=torch.float32):
     return out.to(out_dtype).reshape(lead + (seq, width))
 
 
-# tdspa_block_forward(x, out, g1, wqkv_t, sq, sk, wo_t, bo, g2, w1_t, b1, w2_t, b2,
-#                     xb, ln1, qkv, att, y, ln2, hid, x_bf16, out_bf16, N, S, C, H, DH, MLP,
-#                     stages, sms, scale, stream) in csrc/block.cu.
-ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
-
-
-@functools.cache
-def _kernel():
-    fn = build.load("block").tdspa_block_forward
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def fused_transformer_block(x, block, heads: int, out_dtype=torch.float32):
     """One unmasked self-attention ``ParallelTransformerBlock`` layer, fused.
 
@@ -250,12 +235,10 @@ def fused_transformer_block(x, block, heads: int, out_dtype=torch.float32):
                          f"operands {(3 * hd, cin)}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    if x.device.type == "cpu":
-        if ops.records(x, *params):
+    if not on_cuda("fused_transformer_block", x, *params):
+        if records(x, *params):
             return block_reference(x, flatten_block_params(named), heads, out_dtype)
         return ops.fused_transformer_block(x, params, heads, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     head_dim = hd // heads
     if not kernel_takes(seq, width, heads, head_dim, mlp):
         raise ValueError(f"kernel takes head widths {HEAD_DIMS}, S <= {MAX_SEQ} and C, MLP "
@@ -263,10 +246,7 @@ def fused_transformer_block(x, block, heads: int, out_dtype=torch.float32):
                          f"MLP={mlp}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel takes f32 or bf16 x, got {x.dtype}")
-    if ops.records(x, *params):
-        raise NotImplementedError("fused_transformer_block is forward-only (inference)")
-    if any(p.device != x.device for p in params):
-        raise ValueError("x and the block's parameters lie on different devices")
+    forward_only("fused_transformer_block", x, *params)
     lead = x.shape[:-2]
     out = ops.fused_transformer_block(x.reshape(-1, seq, width).contiguous(), params, heads,
                                       out_dtype)
@@ -304,16 +284,12 @@ def launch_stages(xf, ops, heads: int, out_dtype, stages: int = ALL_STAGES, bufs
         bufs = [xb, scratch(width), scratch(3 * hd), scratch(hd), scratch(width, torch.float32),
                 scratch(width), scratch(mlp)]
     sms = torch.cuda.get_device_properties(xf.device).multi_processor_count
-    with torch.cuda.device(xf.device):
-        rc = _kernel()(
-            xf.data_ptr(), out.data_ptr(), *(ops[name].data_ptr() for name in OPERANDS),
-            *(b.data_ptr() for b in bufs),
-            int(xf.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            items, seq, width, heads, hd // heads, mlp, stages, sms,
-            1.0 / math.sqrt(hd // heads), torch.cuda.current_stream(xf.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"block kernel launch failed: CUDA error {rc}")
+    build.launch(
+        "tdspa_block_forward", xf.device, xf.data_ptr(), out.data_ptr(),
+        *(ops[name].data_ptr() for name in OPERANDS), *(b.data_ptr() for b in bufs),
+        int(xf.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        items, seq, width, heads, hd // heads, mlp, stages, sms, 1.0 / math.sqrt(hd // heads),
+    )
     return out, bufs
 
 

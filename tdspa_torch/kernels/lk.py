@@ -24,9 +24,7 @@ volume on (``corr_radius`` > 0, the rescue tier's configuration).
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -36,24 +34,6 @@ from tdspa_torch.ops import lk as plain
 
 MAX_WINDOW = 11  # csrc/lk.cu: window^2 <= 121 pixels, at most 4 per lane
 MAX_LEVELS = 8
-
-# tdspa_lk_track(level_ptrs, level_h, level_w, levels, tmpl0, tmpl_rescue, h_r, w_r,
-#                queries, tpos, init_vel, gauss_w, tracks, vis, vel_out, N, T, window,
-#                iterations, fb, ncc, tncc, corr_radius, corr_iterations, corr_accept,
-#                rescue_level, stream) in csrc/lk.cu.
-ARGTYPES = (
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-)
-
-
-@functools.cache
-def _kernel():
-    fn = build.load("lk").tdspa_lk_track
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def track_video_lk_kernel(
@@ -92,10 +72,8 @@ def track_video_lk_kernel(
         template_frame=template_frame, template_pos=template_pos,
         init_velocity=init_velocity, return_velocity=return_velocity,
     )
-    if video.device.type == "cpu":
+    if not build.on_cuda("track_video_lk_kernel", video):
         return plain.track_video_lk(video, queries, **kwargs)
-    if video.device.type != "cuda":
-        raise ValueError(f"unsupported device {video.device}")
     del kwargs["return_velocity"]
     tracks, vis, vel = launch(prepare_launch(video, queries, **kwargs))
     return plain.finish_outputs(tracks, vis, vel, input_scale, return_velocity)
@@ -182,19 +160,15 @@ def launch(a: LaunchArgs):
     level_ptrs = np.array([p.data_ptr() for p in a.pyramid], np.uint64)
     level_h = np.array([p.shape[1] for p in a.pyramid], np.int32)
     level_w = np.array([p.shape[2] for p in a.pyramid], np.int32)
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        rc = fn(
-            level_ptrs.ctypes.data, level_h.ctypes.data, level_w.ctypes.data, len(a.pyramid),
-            a.template.data_ptr(), a.template_rescue.data_ptr(), a.template_rescue.shape[0],
-            a.template_rescue.shape[1], a.queries.data_ptr(), a.template_pos.data_ptr(),
-            a.init_velocity.data_ptr(), a.gauss_w.data_ptr(), tracks.data_ptr(), vis.data_ptr(),
-            vel.data_ptr(), n, num_frames, a.window, a.iterations, a.fb_threshold,
-            a.ncc_threshold, a.template_ncc_threshold, a.corr_radius, a.corr_iterations,
-            a.corr_accept, a.rescue_level, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"LK kernel launch failed: CUDA error {rc}")
+    build.launch(
+        "tdspa_lk_track", dev, level_ptrs.ctypes.data, level_h.ctypes.data, level_w.ctypes.data,
+        len(a.pyramid), a.template.data_ptr(), a.template_rescue.data_ptr(),
+        a.template_rescue.shape[0], a.template_rescue.shape[1], a.queries.data_ptr(),
+        a.template_pos.data_ptr(), a.init_velocity.data_ptr(), a.gauss_w.data_ptr(),
+        tracks.data_ptr(), vis.data_ptr(), vel.data_ptr(), n, num_frames, a.window,
+        a.iterations, a.fb_threshold, a.ncc_threshold, a.template_ncc_threshold,
+        a.corr_radius, a.corr_iterations, a.corr_accept, a.rescue_level,
+    )
     track_video_lk_kernel.launches += 1
     if a.corr_radius > 0:
         track_video_lk_kernel.cost_volume_launches += 1

@@ -19,12 +19,10 @@ the other. ``cost_patches_multi.launches`` counts kernel launches.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from tdspa_torch.kernels import build
+from tdspa_torch.kernels.build import forward_only, on_cuda
 from tdspa_torch.kernels.bilinear import bilinear_sample_reference
 
 DIMS = (8, 16, 32)  # feature widths the kernel is built for
@@ -47,19 +45,6 @@ def cost_patches_reference(feats, template_vecs, positions, radius: int = 4):
     coords = positions[:, None, :, :] + offs[:, None, :]  # [N K2 T 2]
     patch = bilinear_sample_reference(feats, coords.reshape(n * k2, t, 2)).reshape(n, k2, t, -1)
     return torch.einsum("nktd,nmd->ntmk", patch, template_vecs)
-
-
-# tdspa_cost_patches(feats, tvec, fpos, out, N, T, Hf, Wf, D, M, R, stream)
-# in csrc/matcher.cu.
-ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-
-
-@functools.cache
-def _kernel():
-    fn = build.load("matcher").tdspa_cost_patches
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def cost_patches_multi(feats, template_vecs, positions, radius: int = 4):
@@ -85,24 +70,15 @@ def cost_patches_multi(feats, template_vecs, positions, radius: int = 4):
         )
     if radius < 0:
         raise ValueError(f"radius must be >= 0, got {radius}")
-    devices = {feats.device, template_vecs.device, positions.device}
-    if len(devices) != 1:
-        raise ValueError(f"feats, template_vecs and positions lie on different devices: {devices}")
-    if feats.device.type == "cpu":
+    if not on_cuda("cost_patches_multi", feats, template_vecs, positions):
         return cost_patches_reference(feats, template_vecs, positions, radius)
-    if feats.device.type != "cuda":
-        raise ValueError(f"unsupported device {feats.device}")
     if any(x.dtype != torch.float32 for x in (feats, template_vecs, positions)):
         raise TypeError("kernel takes f32 feats, template_vecs and positions")
     if dim not in DIMS:
         raise ValueError(f"kernel takes feature width D in {DIMS}, got {dim}")
     if radius > MAX_RADIUS:
         raise ValueError(f"kernel takes radius <= {MAX_RADIUS}, got {radius}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (feats, template_vecs, positions)):
-        raise NotImplementedError(
-            "cost_patches_multi is forward-only on CUDA tensors: its output would carry no "
-            "gradient; differentiate through cost_patches_reference"
-        )
+    forward_only("cost_patches_multi", feats, template_vecs, positions)
     feats, template_vecs, positions = (
         x.contiguous() for x in (feats, template_vecs, positions)
     )
@@ -114,14 +90,8 @@ def cost_patches_multi(feats, template_vecs, positions, radius: int = 4):
     out = torch.empty((n, t, m, k2), dtype=torch.float32, device=feats.device)
     if out.numel() == 0 or hf * wf == 0:
         return out
-    fn = _kernel()
-    with torch.cuda.device(feats.device):
-        rc = fn(
-            feats.data_ptr(), template_vecs.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            n, t, hf, wf, dim, m, radius, torch.cuda.current_stream(feats.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"cost-patch kernel launch failed: CUDA error {rc}")
+    build.launch("tdspa_cost_patches", feats.device, feats.data_ptr(), template_vecs.data_ptr(),
+                 positions.data_ptr(), out.data_ptr(), n, t, hf, wf, dim, m, radius)
     cost_patches_multi.launches += 1
     return out
 

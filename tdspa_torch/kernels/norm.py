@@ -22,12 +22,12 @@ gradients stay what they were. ``row_norm.launches`` and
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
 from tdspa_torch.kernels import build
+from tdspa_torch.kernels.build import aligned, on_cuda, records, rows
 
 EPS = 1e-6  # flax LayerNorm / RMSNorm default
 WARPS = 8  # warps a block of csrc/norm.cu
@@ -37,13 +37,14 @@ MAX_VALUES = 1536  # of a row that one warp's registers hold
 BACKWARD_BLOCKS_PER_SM = 12
 
 
-def row_norm_reference(x, scale, centered: bool, out_dtype):
-    """Plain PyTorch version: x [..., W] normed over W, times scale [W].
+def row_norm_reference(x, scale, centered: bool, out_dtype, bias=None, eps=EPS):
+    """Plain PyTorch version: x [..., W] normed over W, times scale [W], plus
+    bias [W] where given (flax's ``LayerNorm`` with its bias).
 
     ``mean2 = mean(x^2)``; centered: ``var = max(mean2 - mean(x)^2, 0)``,
     ``y = x - mean(x)``; RMS: ``var = mean2``, ``y = x``; then
-    ``y * (rsqrt(var + 1e-6) * scale)`` rounded once to ``out_dtype``. The
-    arithmetic is f32 for f32 or bf16 x (f64 for f64 x).
+    ``y * (rsqrt(var + eps) * scale) (+ bias)`` rounded once to ``out_dtype``.
+    The arithmetic is f32 for f32 or bf16 x (f64 for f64 x).
     """
     x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     mean2 = (x32 * x32).mean(-1, keepdim=True)
@@ -53,8 +54,8 @@ def row_norm_reference(x, scale, centered: bool, out_dtype):
         y = x32 - mean
     else:
         var, y = mean2, x32
-    mul = torch.rsqrt(var + EPS) * scale
-    return (y * mul).to(out_dtype)
+    out = y * (torch.rsqrt(var + eps) * scale)
+    return (out if bias is None else out + bias).to(out_dtype)
 
 
 def row_norm_backward_reference(x, scale, dy, centered: bool):
@@ -129,13 +130,9 @@ def _check(x, scale):
     if x.dim() < 1 or scale.dim() != 1 or scale.shape[0] != x.shape[-1]:
         raise ValueError(f"expected x [..., W] and scale [W]; got {tuple(x.shape)}, "
                          f"{tuple(scale.shape)}")
-    if x.device != scale.device:
-        raise ValueError(f"x and scale lie on different devices: {x.device}, {scale.device}")
 
 
 def _check_cuda(x, scale, out_dtype):
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16) or scale.dtype != torch.float32 \
             or out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel takes f32 or bf16 x, an f32 scale and an f32 or bf16 output; "
@@ -158,70 +155,28 @@ def row_norm(x, scale, centered: bool, out_dtype):
     from tdspa_torch.kernels import ops
 
     _check(x, scale)
-    if x.device.type == "cpu":
-        if ops.records(x, scale):
+    if not on_cuda("row_norm", x, scale):
+        if records(x, scale):
             return row_norm_reference(x, scale, centered, out_dtype)
         return ops.row_norm(x, scale, centered, out_dtype)
     _check_cuda(x, scale, out_dtype)
-    if ops.records(x, scale):
+    if records(x, scale):
         return row_norm_fn(x, scale, centered, out_dtype)
     return ops.row_norm(x, scale, centered, out_dtype)
-
-
-def _aligned(t):
-    """t itself if it starts on a 16-byte boundary, else a fresh (aligned)
-    copy: the kernels move 16-byte words."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-# tdspa_row_norm_forward(x, scale, out, x_bf16, out_bf16, centered, rows, width, lanes, nv,
-#                        stream) in csrc/norm.cu.
-ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-# tdspa_row_norm_backward(x, scale, dy, dx, partial, dscale, x_bf16, dy_bf16, centered, rows,
-#                         width, lanes, nv, parts, stream) in csrc/norm.cu.
-BACKWARD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-
-
-@functools.cache
-def _kernel():
-    fn = build.load("norm").tdspa_row_norm_forward
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _backward_kernel():
-    fn = build.load("norm").tdspa_row_norm_backward
-    fn.argtypes = BACKWARD_ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _rows(x) -> int:
-    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
-    if rows >= 2 ** 31:
-        raise ValueError(f"the row-norm kernel takes fewer than 2^31 rows; got {rows}")
-    return rows
 
 
 def launch(x, scale, centered: bool, out_dtype):
     """The forward kernel's launch on checked CUDA operands (the op's CUDA
     implementation)."""
-    x, scale = _aligned(x.contiguous()), _aligned(scale.contiguous())
+    x, scale = aligned(x.contiguous()), aligned(scale.contiguous())
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    rows, width = _rows(x), x.shape[-1]
+    n, width = rows(x, "the row-norm kernel"), x.shape[-1]
     if out.numel() == 0:
         return out
     p = plan(width, x.element_size())
-    with torch.cuda.device(x.device):
-        rc = _kernel()(
-            x.data_ptr(), scale.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), int(centered), rows, width, p["lanes"],
-            p["steps"], torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"row-norm kernel launch failed: CUDA error {rc}")
+    build.launch("tdspa_row_norm_forward", x.device, x.data_ptr(), scale.data_ptr(),
+                 out.data_ptr(), int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+                 int(centered), n, width, p["lanes"], p["steps"])
     row_norm.launches += 1
     return out
 
@@ -237,10 +192,9 @@ def row_norm_backward(x, scale, dy, centered: bool):
     x and dy, f32 scale); CPU tensors run ``row_norm_backward_reference``.
     ``row_norm_backward.launches`` counts kernel launches.
     """
-    if dy.shape != x.shape or dy.device != x.device:
-        raise ValueError(f"dy must be {tuple(x.shape)} on {x.device}, got {tuple(dy.shape)} "
-                         f"on {dy.device}")
-    if x.device.type == "cpu":
+    if dy.shape != x.shape:
+        raise ValueError(f"dy must be {tuple(x.shape)}, got {tuple(dy.shape)}")
+    if not on_cuda("row_norm_backward", x, scale, dy):
         return row_norm_backward_reference(x, scale, dy, centered)
     _check_cuda(x, scale, dy.dtype)
     return launch_backward(x, scale, dy, centered)
@@ -250,25 +204,20 @@ def launch_backward(x, scale, dy, centered: bool):
     """The backward kernel's launch on checked CUDA operands: the row kernel
     on ``backward_parts`` blocks, then the sum of its per-block dscale
     partials."""
-    x, scale, dy = (_aligned(t.contiguous()) for t in (x, scale, dy))
+    x, scale, dy = (aligned(t.contiguous()) for t in (x, scale, dy))
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    rows, width = _rows(x), x.shape[-1]
-    if rows == 0 or width == 0:
+    n, width = rows(x, "the row-norm kernel"), x.shape[-1]
+    if n == 0 or width == 0:
         return dx, torch.zeros(width, dtype=torch.float32, device=x.device)
     dscale = torch.empty(width, dtype=torch.float32, device=x.device)
     p = plan(width, x.element_size())
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    parts = backward_parts(rows, p, sms)
+    parts = backward_parts(n, p, sms)
     partial = torch.empty((parts, width), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _backward_kernel()(
-            x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-            dscale.data_ptr(), int(x.dtype == torch.bfloat16), int(dy.dtype == torch.bfloat16),
-            int(centered), rows, width, p["lanes"], p["steps"], parts,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"row-norm backward kernel launch failed: CUDA error {rc}")
+    build.launch("tdspa_row_norm_backward", x.device, x.data_ptr(), scale.data_ptr(),
+                 dy.data_ptr(), dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(),
+                 int(x.dtype == torch.bfloat16), int(dy.dtype == torch.bfloat16), int(centered),
+                 n, width, p["lanes"], p["steps"], parts)
     row_norm_backward.launches += 1
     return dx, dscale
 

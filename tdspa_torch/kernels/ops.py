@@ -38,11 +38,6 @@ from tdspa_torch.kernels import attention, bilinear, block, norm
 from tdspa_torch.kernels import quant_matmul as quant_matmul_lib
 
 
-def records(*tensors) -> bool:
-    """Whether autograd would record an op on ``tensors`` (None entries skipped)."""
-    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
-
-
 @torch.library.custom_op("tdspa::fused_masked_attention", mutates_args=(), device_types="cpu")
 def fused_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            key_mask: Optional[torch.Tensor],

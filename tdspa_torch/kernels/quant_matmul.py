@@ -21,13 +21,11 @@ one GEMM).
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from tdspa_torch.kernels import build
+from tdspa_torch.kernels.build import forward_only, on_cuda, records
 
 ROWS = 128  # output rows per GEMM tile of csrc/quant_matmul.cu (two warpgroups of 64)
 BN_CHOICES = (64, 128)  # output columns per GEMM tile
@@ -125,24 +123,8 @@ def _launch_shape(m: int, n: int, sms: int) -> tuple[int, int, int]:
     return bn, tiles, min(tiles, sms)
 
 
-# tdspa_quantize_rows(x, xq, sx, x_bf16, M, K, stream) and
-# tdspa_int8_gemm(xq, sx, wq, ws, out, M, K, N, bn, grid, stream) in
-# csrc/quant_matmul.cu.
-QUANTIZE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-GEMM_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-ARGTYPES = {"tdspa_quantize_rows": QUANTIZE_ARGTYPES, "tdspa_int8_gemm": GEMM_ARGTYPES}
-
-
-@functools.cache
-def _entry(symbol: str):
-    fn = getattr(build.load("quant_matmul"), symbol)
-    fn.argtypes = ARGTYPES[symbol]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check_cuda_operands(*tensors) -> None:
-    if any(t.device.type != "cuda" for t in tensors):
+    if not on_cuda("the int8 kernels", *tensors):
         raise ValueError(f"the kernel takes CUDA tensors, got {[str(t.device) for t in tensors]}")
     if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
         raise ValueError("kernel takes contiguous, 16-byte aligned operands")
@@ -151,11 +133,6 @@ def _check_cuda_operands(*tensors) -> None:
 def _check_k(k: int) -> None:
     if k % 16 or not 16 <= k <= MAX_K:
         raise ValueError(f"kernel takes K in 16..{MAX_K} (multiple of 16); got K={k}")
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 
 
 def quantize_rows(x2d: torch.Tensor):
@@ -168,12 +145,8 @@ def quantize_rows(x2d: torch.Tensor):
     xq = torch.empty((m, k), dtype=torch.int8, device=x2d.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x2d.device)
     if m:
-        with torch.cuda.device(x2d.device):
-            rc = _entry("tdspa_quantize_rows")(
-                x2d.data_ptr(), xq.data_ptr(), sx.data_ptr(), int(x2d.dtype == torch.bfloat16),
-                m, k, torch.cuda.current_stream(x2d.device).cuda_stream,
-            )
-        _raise_on(rc, "int8 quantise")
+        build.launch("tdspa_quantize_rows", x2d.device, x2d.data_ptr(), xq.data_ptr(),
+                     sx.data_ptr(), int(x2d.dtype == torch.bfloat16), m, k)
     return xq, sx
 
 
@@ -197,12 +170,8 @@ def int8_gemm(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor, ws: torch.Te
         return out
     sms = torch.cuda.get_device_properties(xq.device).multi_processor_count
     bn, _, grid = _launch_shape(m, n, sms)
-    with torch.cuda.device(xq.device):
-        rc = _entry("tdspa_int8_gemm")(
-            xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            m, k, n, bn, grid, torch.cuda.current_stream(xq.device).cuda_stream,
-        )
-    _raise_on(rc, "int8 GEMM")
+    build.launch("tdspa_int8_gemm", xq.device, xq.data_ptr(), sx.data_ptr(), wq.data_ptr(),
+                 ws.data_ptr(), out.data_ptr(), m, k, n, bn, grid)
     return out
 
 
@@ -215,8 +184,7 @@ def launch(x2d: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tenso
     if x2d.dim() != 2 or wq.dim() != 2 or wq.shape[1] != x2d.shape[1]:
         raise ValueError(f"expected x2d [M, K] and wq [N, K]; got {tuple(x2d.shape)}, "
                          f"{tuple(wq.shape)}")
-    if torch.is_grad_enabled() and x2d.requires_grad:
-        raise NotImplementedError("quant_matmul is forward-only (inference)")
+    forward_only("quant_matmul", x2d)
     return int8_gemm(*quantize_rows(x2d), wq, ws)
 
 
@@ -233,22 +201,17 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if w.dim() != 2 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"expected x [..., K] and w [K, N]; got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")
-    if x.device != w.device:
-        raise ValueError(f"x and w lie on different devices: {x.device}, {w.device}")
     k, n = w.shape
-    if x.device.type == "cpu":
-        if ops.records(x, w):
+    if not on_cuda("quant_matmul", x, w):
+        if records(x, w):
             return quant_matmul_reference(x, w)
         return ops.quant_matmul(x.reshape(-1, k), w).reshape(x.shape[:-1] + (n,))
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel takes f32/bf16 x, got {x.dtype}")
     _check_k(k)
     if n % 8 or n == 0:
         raise ValueError(f"kernel takes N a multiple of 8; got N={n}")
-    if ops.records(x):
-        raise NotImplementedError("quant_matmul is forward-only (inference)")
+    forward_only("quant_matmul", x)
     return ops.quant_matmul(x.reshape(-1, k).contiguous(), w).reshape(x.shape[:-1] + (n,))
 
 

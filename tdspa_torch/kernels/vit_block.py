@@ -28,13 +28,13 @@ and ``swiglu_gate.launches`` count kernel launches.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
 from tdspa_torch.kernels import build
-from tdspa_torch.kernels.ops import records
+from tdspa_torch.kernels.build import aligned, forward_only, on_cuda, rows
+from tdspa_torch.kernels.norm import row_norm_reference
 
 VEC = 8  # values of a row a lane moves at once: 16 bytes of bf16, 32 of f32
 MAX_VALUES = 1536  # of a row that one warp's registers hold
@@ -57,10 +57,7 @@ def vit_residual_norm_reference(x, residual=None, norm=None, out_dtype=torch.flo
     if norm is None:
         return x
     scale, bias, eps = norm
-    x32 = x.float()
-    mean = x32.mean(-1, keepdim=True)
-    var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean, min=0.0)
-    out = ((x32 - mean) * (torch.rsqrt(var + eps) * scale) + bias).to(out_dtype)
+    out = row_norm_reference(x, scale, True, out_dtype, bias, eps)
     return out if residual is None else (x, out)
 
 
@@ -125,12 +122,6 @@ def _check_row_operands(x, residual, norm, out_dtype):
         _vector("the norm's bias", norm[1], width, x.device)
 
 
-def _forward_only(*tensors):
-    if records(*tensors):
-        raise NotImplementedError("the ViT block kernels are forward-only, as the ViT "
-                                  "attention kernel is")
-
-
 def vit_residual_norm(x, residual=None, norm=None, out_dtype=torch.float32):
     """The residual prologue and/or LayerNorm of x [..., W] over W
     (``vit_residual_norm_reference``): ``residual`` (h [..., W] in f32 or
@@ -144,11 +135,9 @@ def vit_residual_norm(x, residual=None, norm=None, out_dtype=torch.float32):
     autograd would record on CUDA tensors.
     """
     _check_row_operands(x, residual, norm, out_dtype)
-    if x.device.type == "cpu":
+    if not on_cuda("vit_residual_norm", x):
         return vit_residual_norm_reference(x, residual, norm, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    _forward_only(x, *(residual or ()), *(norm or ())[:2])
+    forward_only("vit_residual_norm", x, *(residual or ()), *(norm or ())[:2])
     return launch_residual_norm(x, residual, norm, out_dtype)
 
 
@@ -169,41 +158,10 @@ def swiglu_gate(y, bias):
         raise ValueError(f"the gate takes y [..., 2F] with F a multiple of {vec}; got "
                          f"{tuple(y.shape)}")
     _vector("the bias", bias, 2 * hidden, y.device)
-    if y.device.type == "cpu":
+    if not on_cuda("swiglu_gate", y):
         return swiglu_gate_reference(y, bias)
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
-    _forward_only(y, bias)
+    forward_only("swiglu_gate", y, bias)
     return launch_gate(y, bias)
-
-
-def _aligned(t):
-    """t itself if it starts on a 16-byte boundary, else a fresh (aligned)
-    copy: the kernels move 16-byte words."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _rows(x) -> int:
-    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
-    if rows >= 2 ** 31:
-        raise ValueError(f"the ViT block kernels take fewer than 2^31 rows; got {rows}")
-    return rows
-
-
-# tdspa_vit_residual_norm(x, h, bias, layer_scale, x_out, scale, norm_bias, out, x_bf16,
-#                         h_bf16, out_bf16, eps, rows, width, lanes, nv, stream)
-ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float]
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-# tdspa_swiglu_gate(y, bias, out, bf16, rows, hidden, stream)
-GATE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-
-
-@functools.cache
-def _kernel(symbol: str, argtypes: tuple):
-    fn = getattr(build.load("vit_block"), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _ptr(t):
@@ -212,29 +170,25 @@ def _ptr(t):
 
 def launch_residual_norm(x, residual, norm, out_dtype):
     """The row kernel's launch on checked CUDA operands."""
-    x = _aligned(x.contiguous())
-    rows, width = _rows(x), x.shape[-1]
+    x = aligned(x.contiguous())
+    n, width = rows(x, "the ViT row kernel"), x.shape[-1]
     h = bias = layer_scale = x_out = scale = norm_bias = out = None
     eps = 0.0
     if residual is not None:
-        h, bias, layer_scale = (_aligned(t.contiguous()) for t in residual)
+        h, bias, layer_scale = (aligned(t.contiguous()) for t in residual)
         x_out = torch.empty_like(x)
     if norm is not None:
-        scale, norm_bias = (_aligned(t.contiguous()) for t in norm[:2])
+        scale, norm_bias = (aligned(t.contiguous()) for t in norm[:2])
         eps = float(norm[2])
         out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    if rows:
+    if n:
         p = plan(width)
-        with torch.cuda.device(x.device):
-            rc = _kernel("tdspa_vit_residual_norm", tuple(ARGTYPES))(
-                x.data_ptr(), _ptr(h), _ptr(bias), _ptr(layer_scale), _ptr(x_out), _ptr(scale),
-                _ptr(norm_bias), _ptr(out), int(x.dtype == torch.bfloat16),
-                int((x if h is None else h).dtype == torch.bfloat16),
-                int(out_dtype == torch.bfloat16), eps, rows, width, p["lanes"], p["steps"],
-                torch.cuda.current_stream(x.device).cuda_stream,
-            )
-        if rc != 0:
-            raise RuntimeError(f"ViT row kernel launch failed: CUDA error {rc}")
+        build.launch(
+            "tdspa_vit_residual_norm", x.device, x.data_ptr(), _ptr(h), _ptr(bias),
+            _ptr(layer_scale), _ptr(x_out), _ptr(scale), _ptr(norm_bias), _ptr(out),
+            int(x.dtype == torch.bfloat16), int((x if h is None else h).dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), eps, n, width, p["lanes"], p["steps"],
+        )
         vit_residual_norm.launches += 1
     if norm is None:
         return x_out
@@ -246,18 +200,13 @@ vit_residual_norm.launches = 0
 
 def launch_gate(y, bias):
     """The gate kernel's launch on checked CUDA operands."""
-    y, bias = _aligned(y.contiguous()), _aligned(bias.contiguous())
+    y, bias = aligned(y.contiguous()), aligned(bias.contiguous())
     hidden = y.shape[-1] // 2
-    rows = _rows(y)
+    n = rows(y, "the SwiGLU gate kernel")
     out = torch.empty(y.shape[:-1] + (hidden,), dtype=y.dtype, device=y.device)
-    if rows:
-        with torch.cuda.device(y.device):
-            rc = _kernel("tdspa_swiglu_gate", tuple(GATE_ARGTYPES))(
-                y.data_ptr(), bias.data_ptr(), out.data_ptr(), int(y.dtype == torch.bfloat16),
-                rows, hidden, torch.cuda.current_stream(y.device).cuda_stream,
-            )
-        if rc != 0:
-            raise RuntimeError(f"SwiGLU gate kernel launch failed: CUDA error {rc}")
+    if n:
+        build.launch("tdspa_swiglu_gate", y.device, y.data_ptr(), bias.data_ptr(),
+                     out.data_ptr(), int(y.dtype == torch.bfloat16), n, hidden)
         swiglu_gate.launches += 1
     return out
 

@@ -3,10 +3,10 @@
     python3 tdspa_torch/tools/ab_block_stages.py PARENT_DIR
 
 builds the parent checkout's ``csrc/block.cu`` (with its own ``csrc/*.cuh``)
-into ``build/ab_block/`` of this checkout (git-ignored) and loads it beside
-this checkout's library with ctypes: the C entry point ``tdspa_block_forward``
-has kept its signature (``kernels/block.py::ARGTYPES``) in every version. Both run
-through this checkout's ``kernels/block.py::launch_stages`` on
+into ``build/ab_block/`` of this checkout (git-ignored) and binds it beside
+this checkout's library (``kernels/build.py::bind``): the C entry point
+``tdspa_block_forward`` has kept its signature (``build.ENTRIES``) in every
+version. Both run through this checkout's ``kernels/block.py::launch_stages`` on
 ``chip_smoke.py``'s seeded blocks (f32 x, norm scales and biases perturbed)
 at the readout [512, 129, 1280] and decompress [1, 128, 1152] layers: first
 each layer against ``block_reference`` (``BLOCK_ATOL``), then each of the
@@ -17,7 +17,6 @@ with each stage's bound (``chip_smoke.py::block_stage_bounds``). Needs a GPU.
 
 from __future__ import annotations
 
-import ctypes
 import json
 from pathlib import Path
 import subprocess
@@ -49,9 +48,8 @@ def main(argv: list[str]) -> int:
     if proc.returncode:
         print(proc.stdout + proc.stderr, file=sys.stderr)
         return 1
-    fns = {"parent": ctypes.CDLL(str(lib)).tdspa_block_forward, "change": kb._kernel()}
-    fns["parent"].argtypes = kb.ARGTYPES
-    fns["parent"].restype = ctypes.c_int
+    fns = {"parent": build.bind("tdspa_block_forward", lib),
+           "change": build.bind("tdspa_block_forward")}
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     heads, head_dim = cs.BLOCK_HEADS, cs.BLOCK_QKV // cs.BLOCK_HEADS
     for name, items, seq, width, mlp, _ in cs.BLOCK_SHAPES:
@@ -68,14 +66,14 @@ def main(argv: list[str]) -> int:
             ops = kb._operands(block)
             want = kb.block_reference(x, ops, heads)
             for label, fn in fns.items():
-                kb._kernel = lambda fn=fn: fn
+                build.BOUND["tdspa_block_forward"] = fn
                 got, _ = kb.launch_stages(x, ops, heads, torch.float32)
                 err = (got - want).abs().max().item()
                 if not torch.isfinite(got).all() or err > cs.BLOCK_ATOL:
                     raise AssertionError(f"{label} block disagrees with block_reference: {err}")
             del want, got
             for turn, label in enumerate(("parent", "change", "change", "parent")):
-                kb._kernel = lambda fn=fns[label]: fn
+                build.BOUND["tdspa_block_forward"] = fns[label]
                 _, bufs = kb.launch_stages(x, ops, heads, torch.float32)
                 stage_ms = {stage: cs.cuda_ms(lambda i=i: kb.launch_stages(
                     x, ops, heads, torch.float32, 1 << i, bufs), iters=5)

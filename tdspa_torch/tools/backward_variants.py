@@ -7,7 +7,7 @@ phase of the consumer warpgroups removed (phase 1, the row pass with the
 dP^T it stores; phase 2, the key pass: s^T, P^T, dS^T and dv; phase 3, dk
 and dq; or all three: the loads, the conversions and the stores alone) or
 with the divisions by bf16(sqrt(D)) made IEEE divisions (``__fdiv_rn``)
-again, loads each with ctypes in place of the wrapper's kernel and times it
+again, binds each (``kernels/build.py::bind``) in place of the wrapper's kernel and times it
 at the 3D encoder, readout and 2D encoder shapes of phase
 ``attention_backward`` (B = 2048), in turns. The removed variants compute wrong gradients: only
 their times mean anything. The division variant must equal the kernel bit
@@ -17,7 +17,6 @@ are built into the git-ignored ``build/`` directory.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import subprocess
@@ -68,8 +67,7 @@ def build_variants(build, report) -> dict:
         if proc.returncode:
             raise RuntimeError(f"variant {name} did not build:\n{log[-3000:]}")
         print(json.dumps({"variant": name, "ptxas": report(log)}), flush=True)
-        fn = ctypes.CDLL(str(out_dir / f"lib{name}.so")).tdspa_attention_backward
-        fns[name] = fn
+        fns[name] = build.bind("tdspa_attention_backward", out_dir / f"lib{name}.so")
     return fns
 
 
@@ -83,16 +81,13 @@ def main() -> int:
 
     cs.phase_device()
     fns = build_variants(build, cs.ptxas_report)
-    for fn in fns.values():
-        fn.argtypes = ka.BACKWARD_ARGTYPES
-        fn.restype = ctypes.c_int
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     for name, *shape in SHAPES:
         q, k, v, mask = cs.attention_inputs(gen, *shape)
         g = torch.randn(q.shape, generator=gen, device="cuda")
         row, outs = {"shape": name}, {}
         for variant in ORDER:
-            ka._backward_kernel = lambda fn=fns[variant]: fn
+            build.BOUND["tdspa_attention_backward"] = fns[variant]
             outs[variant] = ka.attention_backward(q, k, v, mask, g)
             row.setdefault(variant, []).append(
                 cs.cuda_ms(lambda: ka.attention_backward(q, k, v, mask, g), 10))

@@ -12,10 +12,6 @@ relative difference up to 2**-9 each side): |diff| <= 2e-2 for N(0, 1)
 values; a bf16 output adds one bf16 ulp (rtol 2**-7).
 """
 
-import ctypes
-import re
-from pathlib import Path
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -327,20 +323,3 @@ def test_fused_attention_fn_gives_only_the_gradients_asked_for():
     assert dk.shape == k.shape and q.grad is None
     assert fused_masked_attention.launches == 0  # CPU tensors: the plain version
 
-
-@pytest.mark.parametrize("source,symbol,argtypes", [
-    ("attention.cu", "tdspa_attention_forward", ka.ARGTYPES),
-    ("vit_attention.cu", "tdspa_vit_attention_forward", ka.VIT_ARGTYPES),
-    ("attention_backward.cu", "tdspa_attention_backward", ka.BACKWARD_ARGTYPES),
-])
-def test_ctypes_signature_matches_the_cuda_entry_point(source, symbol, argtypes):
-    """The kernels load only on a GPU host; their C signatures are checked here."""
-    src = (Path(ka.build.CSRC) / source).read_text()
-    decl = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src).group(1)
-    params = [p.strip() for p in decl.split(",")]
-    kinds = [
-        ctypes.c_void_p if "*" in p else ctypes.c_float if p.startswith("float") else ctypes.c_int
-        for p in params
-    ]
-    assert kinds == argtypes
-    assert source.removesuffix(".cu") in ka.build.KERNELS

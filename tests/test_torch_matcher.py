@@ -13,9 +13,7 @@ gives the TPU kernel, since four rounds of an MLP on those costs move
 positions by stride-2 feature steps.
 """
 
-import ctypes
 import os
-import re
 from pathlib import Path
 
 import jax
@@ -27,7 +25,6 @@ import torch
 from tdspa.features import matcher as jax_matcher
 from tdspa.utils.synthetic_video import make_tracking_scene
 from tdspa_torch.features import matcher
-from tdspa_torch.kernels import matcher as kmatcher
 from tdspa_torch.kernels.matcher import cost_patches_multi, cost_patches_reference
 
 REPO = Path(__file__).resolve().parents[1]
@@ -206,14 +203,3 @@ def test_degradation_stats_match_jax_on_an_even_frame_count(num_frames):
     assert got_d["noise_sigma"] == pytest.approx(want_d["noise_sigma"], rel=1e-4)
 
 
-def test_ctypes_signature_matches_the_cuda_entry_point():
-    """The kernel loads only on a GPU host; its C signature is checked here."""
-    src = (Path(kmatcher.build.CSRC) / "matcher.cu").read_text()
-    decl = re.search(r'extern "C" int tdspa_cost_patches\(([^)]*)\)', src).group(1)
-    params = [p.strip() for p in decl.split(",")]
-    kinds = [
-        ctypes.c_void_p if "*" in p else ctypes.c_float if p.startswith("float") else ctypes.c_int
-        for p in params
-    ]
-    assert kinds == kmatcher.ARGTYPES
-    assert "matcher" in kmatcher.build.KERNELS

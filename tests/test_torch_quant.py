@@ -12,7 +12,6 @@ the f32 dequantisation differs, by XLA's fusion of the two scale products
 another int8 step at this seed).
 """
 
-import ctypes
 from pathlib import Path
 import re
 
@@ -198,12 +197,9 @@ def test_tiny_quantized_model_matches_jax_f32():
                                    err_msg=name)
 
 
-def test_ctypes_signature_matches_the_cuda_entry_point():
-    """The kernels load only on a GPU host; their C signatures are checked here."""
+def test_the_table_binds_the_two_entry_points_of_the_source():
     src = (Path(kq.build.CSRC) / "quant_matmul.cu").read_text()
-    for symbol, argtypes in kq.ARGTYPES.items():
-        decl = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src).group(1)
-        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in decl.split(",")]
-        assert kinds == argtypes, symbol
-    assert set(re.findall(r'extern "C" int (\w+)\(', src)) == set(kq.ARGTYPES)
-    assert "quant_matmul" in kq.build.KERNELS
+    table = {symbol for symbol, (library, _) in kq.build.ENTRIES.items()
+             if library == "quant_matmul"}
+    assert set(re.findall(r'extern "C" int (\w+)\(', src)) == table
+    assert table == {"tdspa_quantize_rows", "tdspa_int8_gemm"}
