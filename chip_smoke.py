@@ -141,6 +141,10 @@ and the script exits non-zero:
    uninterrupted step 3; then the step alone: step ms, peak memory,
    attention launches per step (each chunk's forward and its recompute)
    and backward-kernel launches per step (one per differentiated call),
+   row-norm launches per step (``step_norm_launches``: forward each chunk's
+   norms twice, the recompute too; backward once a norm; the shared query
+   norm once a ``norm_q`` launch, its backward summing 3 cotangents a layer,
+   4 with cross-attention),
    one accumulated step (2 microbatches) against the full step, the first
    step's loss and gradients against plain attention (bf16, and f32 as the
    yardstick of bf16 noise), and where a step's time goes.
@@ -195,7 +199,10 @@ and the script exits non-zero:
    Each row: error, card ms, the plain chain's ms, the library's ms
    (``F.layer_norm`` / ``F.rms_norm`` and a cast, timed only: the port never
    calls them) and the bound (bytes over 3.35 TB/s: each operand read once,
-   each output written once).
+   each output written once). Then the backward that sums a training
+   query norm's three bf16 cotangents, at 3DSPA's [1056768, 1280] and
+   [1236992, 384] f32 LayerNorms, against the plain backward of their f32
+   sum, beside its bound (x, the cotangents, dx) and the chain it replaced.
 31. vit_block_kernel (after phase 30): the ViT block's kernels
    (``csrc/vit_block.cu``) at ViT-g/14's shapes, 8 frames of 1297 tokens:
    the row kernel's four launches (norm1, the attention's residual with norm2,
@@ -2296,6 +2303,12 @@ NORM_SHAPES = [
     ("train_encoder_qk", 9895936, 64, torch.bfloat16, torch.bfloat16, False, True),
 ]
 NORM_REL_ATOL = 1e-5  # of each row's largest value: f32 rounding in another order
+# The summing backward of a training block's query norm: f32 x and its three
+# readers' bf16 cotangents (query, key, value), centered, at 3DSPA's training
+# readout (4 x 2048 x 129 tokens, 1280 wide) and track encoder (4 x 2048 x 151,
+# 384): (name, rows, width). Its target: 80 % of the byte bound.
+NORM_SUM_SHAPES = [("train3d_readout_ln", 1056768, 1280), ("train3d_encoder_ln", 1236992, 384)]
+NORM_SUM_COTANGENTS, NORM_SUM_TARGET = 3, 0.8
 NORM_LIBRARY = ("torch.nn.functional.layer_norm(x, (W,), scale, None, 1e-6) (centered) or "
                 "rms_norm(x, (W,), scale, 1e-6) (RMS, scale in x's dtype), then .to(out); "
                 "backward: autograd.grad of that for x and scale")
@@ -2377,7 +2390,53 @@ def phase_norm_kernel() -> dict:
         rows_out[name] = row
         del x, scale
         torch.cuda.empty_cache()
+    for name, rows, width in NORM_SUM_SHAPES:
+        rows_out[name] = _norm_sum_backward(name, rows, width)
     return rows_out
+
+
+def _norm_sum_backward(name: str, rows: int, width: int) -> dict:
+    """The backward kernel summing ``NORM_SUM_COTANGENTS`` bf16 cotangents of
+    an f32 [rows, width] LayerNorm in registers, against the plain backward
+    of their f32 sum; timed beside its byte bound (x, each cotangent, dx) and
+    the chain it replaced (the casts and f32 adds, then the backward of one
+    f32 cotangent)."""
+    emit("norm_kernel", shape=name)
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    x = torch.randn((rows, width), generator=gen, device="cuda") * 2 + 0.5
+    scale = torch.rand(width, generator=gen, device="cuda") + 0.5
+    dys = [torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+           for _ in range(NORM_SUM_COTANGENTS)]
+    before = norm_lib.row_norm_backward.launches
+    dx, dscale = norm_lib.row_norm_backward(x, scale, dys, True)
+    launched = norm_lib.row_norm_backward.launches - before
+    want_dx, want_dscale = norm_lib.row_norm_backward_reference(
+        x, scale, norm_lib.cotangent_sum(dys), True)
+    torch.cuda.synchronize()
+    row = dict(shape=[rows, width], x_dtype="float32", dy_dtype="bfloat16",
+               cotangents=NORM_SUM_COTANGENTS, centered=True, launches=launched,
+               plan=norm_lib.backward_plan(width, x.element_size(), dys[0].element_size()),
+               backward_dx_row_rel_err=_row_rel_err(dx, want_dx),
+               backward_dscale_rel_err=((dscale - want_dscale).abs().max()
+                                        / want_dscale.abs().max()).item(),
+               backward_tol=NORM_REL_ATOL)
+    del dx, dscale, want_dx, want_dscale
+    torch.cuda.empty_cache()
+    row["backward_ms"] = cuda_ms(lambda: norm_lib.row_norm_backward(x, scale, dys, True), iters=10)
+    row["backward_chain_ms"] = cuda_ms(lambda: norm_lib.row_norm_backward(
+        x, scale, norm_lib.cotangent_sum(dys), True), iters=5)
+    nbytes = rows * width * (2 * x.element_size() + NORM_SUM_COTANGENTS * 2) + 2 * width * 4
+    row["backward_bound_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+    row["backward_roofline_share"] = row["backward_bound_ms"] / row["backward_ms"]
+    row["backward_target"] = NORM_SUM_TARGET
+    emit("norm_kernel", **row)
+    if (launched != 1 or row["backward_dx_row_rel_err"] > NORM_REL_ATOL
+            or row["backward_dscale_rel_err"] > 1e-4):
+        raise AssertionError(f"the summing row-norm backward disagrees with the plain "
+                             f"backward of the f32 sum: {name} {row}")
+    del x, scale, dys
+    torch.cuda.empty_cache()
+    return row
 
 
 # ViT-g/14 on the extractor's 8-frame groups: 8 x 1297 tokens, width 1536,
@@ -2636,6 +2695,25 @@ def step_launches(model_type: str, microbatches: int = 1) -> dict:
     recompute = enc * enc_chunks + (dec + read) * dec_chunks
     return {"forward": microbatches * forward, "recompute": microbatches * recompute,
             "step": microbatches * (forward + recompute), "backward": microbatches * forward}
+
+
+def step_norm_launches(model_type: str) -> dict:
+    """Row-norm launches of one training step. A stack call launches 4 a
+    layer (``norm_q``, ``norm_attn``, the query and key RMSNorms), 6 with the
+    cross-attention (the latents'), and its final norm. Forward
+    (``row_norm``): each encoder and decoder chunk twice (its recompute too,
+    as ``step_launches``), the latents once; backward
+    (``row_norm_backward``): once a norm the loss depends on. The shared
+    query norm (``row_norm_shared``) launches once a ``norm_q`` call, and its
+    backward sums 3 cotangents, 4 with the cross-attention
+    (``row_norm_shared_cotangents``)."""
+    enc, lat, dec, read = stack_layers(model_type)
+    enc_chunks, dec_chunks = TRAIN_SUPPORT // TRAIN_CHUNK, TRAIN_QUERIES // TRAIN_CHUNK
+    chunked = enc_chunks * (4 * enc + 1) + dec_chunks * (4 * (dec + read) + 2)
+    chunked_q = enc_chunks * enc + dec_chunks * (dec + read)
+    return {"row_norm": 2 * chunked + 6 * lat + 1, "row_norm_backward": chunked + 6 * lat + 1,
+            "row_norm_shared": 2 * chunked_q + lat,
+            "row_norm_shared_cotangents": 3 * chunked_q + 4 * lat}
 
 
 def attention_step_costs(model_type: str) -> dict:
@@ -2979,7 +3057,18 @@ def phase_train(model_type: str) -> dict:
                 for k, v in saved.items():
                     live[k].copy_(v)
 
+    # The same step with its row-norm launches counted.
+    counters = {"row_norm": norm_lib.row_norm, "row_norm_backward": norm_lib.row_norm_backward,
+                "row_norm_shared": norm_lib.row_norm_shared}
+
+    def norm_counts():
+        return {**{k: fn.launches for k, fn in counters.items()},
+                "row_norm_shared_cotangents": norm_lib.row_norm_shared.cotangents}
+
+    before = norm_counts()
     full_state, full_metrics = step(state, batch)
+    norm_step = {k: v - before[k] for k, v in norm_counts().items()}
+    norm_expected = step_norm_launches(model_type)
     full_params = _clone(full_state.params)
     reset()
     accum = make_grad_accum_step(model, optimizer, schedule, num_microbatches=2)
@@ -3038,7 +3127,8 @@ def phase_train(model_type: str) -> dict:
         step_ms=step_ms, step_median_ms=statistics.median(step_ms[1:]), step_losses=step_losses,
         step_peak_mem_gb=step_peak, launches_per_step=step_launches_seen,
         backward_launches_per_step=step_backward_seen,
-        expected_launches=expected, accum_ms=accum_ms, accum_launches=accum_launches,
+        expected_launches=expected, norm_launches_per_step=norm_step,
+        norm_launches_expected=norm_expected, accum_ms=accum_ms, accum_launches=accum_launches,
         accum_backward_launches=accum_backward_launches,
         accum_loss_rel=accum_loss_rel, accum_loss_rtol=ACCUM_LOSS_RTOL,
         accum_param_excess=param_excess, accum_param_rtol=ACCUM_PARAM_RTOL,
@@ -3070,6 +3160,8 @@ def phase_train(model_type: str) -> dict:
             or step_backward_seen != expected["backward"]):
         problems.append(f"backward kernel launches {backward_launches} / {step_backward_seen} "
                         f"per step, expected {expected['backward']} per step")
+    if norm_step != norm_expected:
+        problems.append(f"row-norm launches a step {norm_step}, expected {norm_expected}")
     if (accum_launches != step_launches(model_type, 2)["step"]
             or accum_backward_launches != step_launches(model_type, 2)["backward"]):
         problems.append(f"accumulated step launched {accum_launches} and "
@@ -3861,7 +3953,8 @@ def main() -> int:
         "source": "tdspa_torch/csrc/norm.cu",
         "replaces": None,
         "launches": path["norm_launches"],
-        "max_row_rel_err": max(r["max_row_rel_err"] for r in norm_rows.values()),
+        "max_row_rel_err": max(r["max_row_rel_err"] for r in norm_rows.values()
+                               if "max_row_rel_err" in r),  # the forward rows
         "ms": encoder_ln["ms"],
         "plain_ms": encoder_ln["plain_ms"],
         "bound_ms": encoder_ln["bound_ms"],

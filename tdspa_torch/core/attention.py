@@ -15,9 +15,11 @@ Parameter names and layouts are the flax tree's (``DenseGeneral`` kernels
 Numerics follow flax: a layer with ``dtype`` casts both its input and its
 f32 parameters to ``dtype``; norms take f32 statistics with eps 1e-6 and
 return ``dtype`` (a block's two pre-projection LayerNorms return the compute
-dtype at once where that rounds to the same bits, ``_norm_dtype``); ``gelu``
-is the tanh approximation. Each norm is one launch of ``csrc/norm.cu`` on
-CUDA tensors (``kernels/norm.py``).
+dtype at once where that rounds to the same bits, ``_norm_dtype``; where
+autograd records, the query norm gives each of its readers a tensor of its
+own, and its backward sums their cotangents in f32); ``gelu`` is the tanh
+approximation. Each norm is one launch of ``csrc/norm.cu`` on CUDA tensors
+(``kernels/norm.py``).
 
 Two inference knobs, as in the JAX package: ``quantize`` swaps the
 projections and the MLP for the dynamic-int8 layers of ``core/quant.py``
@@ -37,7 +39,7 @@ import torch.nn.functional as F
 from tdspa_torch.kernels.attention import fused_attention_fn, fused_masked_attention
 from tdspa_torch.kernels.block import fused_transformer_block, kernel_takes
 from tdspa_torch.kernels.build import records
-from tdspa_torch.kernels.norm import row_norm
+from tdspa_torch.kernels.norm import row_norm, row_norm_shared
 
 _FILL = torch.finfo(torch.float32).min
 
@@ -95,10 +97,14 @@ class _Norm(nn.Module):
         with torch.no_grad():
             self.scale.fill_(1.0)
 
-    def forward(self, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
-        """The norm in ``out_dtype`` (the module's dtype when None)."""
-        return row_norm(x, self.scale, self.centered,
-                        self.dtype if out_dtype is None else out_dtype)
+    def forward(self, x: torch.Tensor, out_dtype=None, readers=None):
+        """The norm in ``out_dtype`` (the module's dtype when None); with
+        ``readers``, a tuple of that many tensors over one output, one for
+        each projection that reads it (``kernels/norm.py::row_norm_shared``)."""
+        dtype = self.dtype if out_dtype is None else out_dtype
+        if readers is None:
+            return row_norm(x, self.scale, self.centered, dtype)
+        return row_norm_shared(x, self.scale, self.centered, dtype, readers)
 
 
 def LayerNorm(width, dtype, device) -> _Norm:
@@ -191,10 +197,12 @@ class QKNormAttention(nn.Module):
         self.dense_value = dense((kv_width,), (num_heads, head_v), False)
         self.dense_out = dense((num_heads, head_v), (q_width,), True)
 
-    def forward(self, inputs_q, inputs_kv, mask=None):
+    def forward(self, inputs_q, inputs_kv, mask=None, inputs_v=None):
+        """``inputs_v``, where given, is what the value projection reads in
+        place of ``inputs_kv``: the same values as a tensor of its own."""
         query = self.norm_query(self.dense_query(inputs_q))
         key = self.norm_key(self.dense_key(inputs_kv))
-        value = self.dense_value(inputs_kv)
+        value = self.dense_value(inputs_kv if inputs_v is None else inputs_v)
         if self.use_fused and _fused_attention_applicable(query, key, mask):
             x = _fused_attention(query, key, value, mask, out_dtype=self.residual_dtype)
         else:
@@ -240,15 +248,13 @@ class ParallelTransformerBlock(nn.Module):
             self.MLP_in = Dense(width, mlp_size, dtype, device)
             self.MLP_out = Dense(mlp_size, width, dtype, device)
 
-    def _norm_dtype(self, queries):
+    def _norm_dtype(self):
         """The dtype ``norm_q`` and ``norm_attn`` write. Their only readers are
         projections that round to the compute dtype, so with an f32 residual
         the norms write that dtype at once: the same bits, rounded once. Not
-        under ``quantize`` (the int8 layers quantise the f32 values) nor where
-        autograd records (the projections' gradients then add up in f32, as in
-        the JAX reference). None keeps the norms' own dtype."""
-        if self.residual_dtype != torch.float32 or self.quantize or records(
-                queries, self.norm_q.scale, self.norm_attn.scale):
+        under ``quantize`` (the int8 layers quantise the f32 values). None
+        keeps the norms' own dtype."""
+        if self.residual_dtype != torch.float32 or self.quantize:
             return None
         return self.dtype
 
@@ -258,13 +264,20 @@ class ParallelTransformerBlock(nn.Module):
         ):
             return fused_transformer_block(queries, self, self.num_heads,
                                            out_dtype=self.residual_dtype)
-        norm_dtype = self._norm_dtype(queries)
-        normed_queries = self.norm_q(queries, norm_dtype)
+        norm_dtype = self._norm_dtype()
+        if norm_dtype is not None and records(queries, self.norm_q.scale):
+            # One tensor a projection, so that autograd never adds their
+            # compute-dtype cotangents: the norm's backward sums them in f32.
+            q_in, k_in, v_in, *cross_in = self.norm_q(queries, norm_dtype,
+                                                      3 if inputs_kv is None else 4)
+        else:
+            q_in = k_in = v_in = self.norm_q(queries, norm_dtype)
+            cross_in = [q_in]
         attn_out = queries.to(self.residual_dtype) + self.self_att(
-            normed_queries, normed_queries, qq_mask
+            q_in, k_in, qq_mask, inputs_v=v_in
         )
         if inputs_kv is not None:
-            attn_out = attn_out + self.cross_att(normed_queries, inputs_kv, qk_mask)
+            attn_out = attn_out + self.cross_att(cross_in[0], inputs_kv, qk_mask)
         h = F.gelu(self.MLP_in(self.norm_attn(attn_out, norm_dtype)), approximate="tanh")
         return attn_out + self.MLP_out(h).to(self.residual_dtype)
 

@@ -24,6 +24,10 @@
 //   dscale = sum over rows of (dy y) r: each block writes its rows' sums as
 //            f32 partials, then sum_partials_kernel adds them in a fixed
 //            order. No atomics, so the result is the same on every run.
+// dy is the sum of 1 to 4 cotangents, one from each projection that reads
+// the forward's output (a block's shared query norm has 3, or 4 with the
+// cross-attention's query): the kernel adds them in f32 registers in the
+// order given, so no f32 cotangent is written to memory.
 //
 // Layout: `lanes` consecutive lanes of a warp hold one row (32 / lanes rows a
 // warp), each lane NV vectors of VEC elements in registers: VEC = 4 f32 or 8
@@ -34,12 +38,18 @@
 // 16 values of a row) to keep several loads in flight. `lanes` and NV follow the
 // width (kernels/norm.py::plan): the heads' 64- and 96-wide bf16 rows take 8
 // and 4 lanes (4 and 8 rows a warp), the stacks' rows of 256 to 1280 f32
-// values a whole warp. The backward runs the grid the caller gives (one block a
-// row of its dscale partials), each block walking tiles of rows.
+// values a whole warp. The backward of f32 x with bf16 cotangents takes
+// vectors of 8 values (two 16-byte words of x, one of each cotangent) where W
+// is a multiple of 8 (kernels/norm.py::backward_plan): with 4, each cotangent
+// moved in 8-byte words, and 3 of them read 57 % of the byte bound on an H100
+// at widths 384 and 1280 (in 16-byte words 90 and 72 %). The backward runs the
+// grid the caller gives (one block a row of its dscale partials), each block
+// walking tiles of rows.
 //
 // What bounds it on an H100: device-memory bytes, at a few f32 operations per
 // byte. Forward W x (in + out) bytes a row: 6 an element f32 -> bf16, 4
-// bf16 -> bf16, 8 f32 -> f32; backward x, dy and dx.
+// bf16 -> bf16, 8 f32 -> f32; backward x, each cotangent and dx (14 an
+// element for f32 x and three bf16 cotangents).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +61,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_VALUES = 1536;  // of a row held by one warp's registers
+constexpr int MAX_COTANGENTS = 4;  // the backward's dy operands, summed
 constexpr float EPS = 1e-6f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -188,6 +199,34 @@ __device__ __forceinline__ void load_rows(const T* x, long long first, int strid
   }
 }
 
+// The backward's cotangents: p[0..K) of one dtype, summed in this order.
+struct Cotangents {
+  const void* p[MAX_COTANGENTS];
+};
+
+// The f32 sum of K cotangents' rows, loaded as load_rows loads x.
+template <typename D, int K, int RPG, int NV, int VEC>
+__device__ __forceinline__ void load_sum(const Cotangents& dy, long long first, int stride,
+                                         int sub, int lanes, int rows, int width,
+                                         float (&g)[RPG][NV][VEC]) {
+  load_rows<D, RPG, NV, VEC>(static_cast<const D*>(dy.p[0]), first, stride, sub, lanes, rows,
+                             width, g);
+#pragma unroll
+  for (int j = 1; j < K; ++j) {
+    float t[RPG][NV][VEC];
+    load_rows<D, RPG, NV, VEC>(static_cast<const D*>(dy.p[j]), first, stride, sub, lanes, rows,
+                               width, t);
+#pragma unroll
+    for (int rr = 0; rr < RPG; ++rr) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) g[rr][i][e] += t[rr][i][e];
+      }
+    }
+  }
+}
+
 template <typename T, int VEC, int NV>
 __global__ void __launch_bounds__(THREADS) row_norm_kernel(
     const T* __restrict__ x, const float* __restrict__ scale, void* __restrict__ out,
@@ -224,14 +263,14 @@ __global__ void __launch_bounds__(THREADS) row_norm_kernel(
   }
 }
 
-// dy is f32 or bf16 (the forward's output dtype); dx takes x's dtype. The
-// blocks walk the tiles of rows (a grid stride); each writes its dscale sums
-// to partial[blockIdx.x, :W].
-template <typename T, int VEC, int NV>
+// dy: K cotangents, each f32 or bf16 (the forward's output dtype); dx takes
+// x's dtype. The blocks walk the tiles of rows (a grid stride); each writes
+// its dscale sums to partial[blockIdx.x, :W].
+template <typename T, int VEC, int NV, int K>
 __global__ void __launch_bounds__(THREADS) row_norm_backward_kernel(
-    const T* __restrict__ x, const float* __restrict__ scale, const void* __restrict__ dy,
-    int dy_bf16, T* __restrict__ dx, float* __restrict__ partial, int centered, int rows,
-    int width, int lanes) {
+    const T* __restrict__ x, const float* __restrict__ scale, Cotangents dy, int dy_bf16,
+    T* __restrict__ dx, float* __restrict__ partial, int centered, int rows, int width,
+    int lanes) {
   constexpr int RPG = rows_per_group(NV, VEC);
   __shared__ float block_sum[32 * NV * VEC];
   const int lane = threadIdx.x % 32, sub = lane % lanes, groups = 32 / lanes;
@@ -249,11 +288,9 @@ __global__ void __launch_bounds__(THREADS) row_norm_backward_kernel(
     float xv[RPG][NV][VEC], gv[RPG][NV][VEC];
     load_rows<T, RPG, NV, VEC>(x, first, groups, sub, lanes, rows, width, xv);
     if (dy_bf16) {
-      load_rows<uint16_t, RPG, NV, VEC>(static_cast<const uint16_t*>(dy), first, groups, sub,
-                                        lanes, rows, width, gv);
+      load_sum<uint16_t, K, RPG, NV, VEC>(dy, first, groups, sub, lanes, rows, width, gv);
     } else {
-      load_rows<float, RPG, NV, VEC>(static_cast<const float*>(dy), first, groups, sub, lanes,
-                                     rows, width, gv);
+      load_sum<float, K, RPG, NV, VEC>(dy, first, groups, sub, lanes, rows, width, gv);
     }
     Stats st[RPG];
     all_stats<RPG, NV, VEC>(xv, width, centered, lanes, st);
@@ -368,11 +405,11 @@ int forward(const void* x, const float* scale, void* out, int out_bf16, int cent
 }
 
 // The backward on a grid of `parts` blocks (the rows of the partials).
-template <typename T, int VEC, int NV>
-int backward(const void* x, const float* scale, const void* dy, int dy_bf16, void* dx,
+template <typename T, int VEC, int K, int NV>
+int backward(const void* x, const float* scale, Cotangents dy, int dy_bf16, void* dx,
              float* partial, float* dscale, int centered, int rows, int width, int lanes,
              int parts, cudaStream_t st) {
-  row_norm_backward_kernel<T, VEC, NV><<<parts, THREADS, 0, st>>>(
+  row_norm_backward_kernel<T, VEC, NV, K><<<parts, THREADS, 0, st>>>(
       static_cast<const T*>(x), scale, dy, dy_bf16, static_cast<T*>(dx), partial, centered,
       rows, width, lanes);
   const cudaError_t rc = cudaGetLastError();
@@ -392,21 +429,34 @@ int forward_nv(int nv, A... args) {
   }
 }
 
-template <typename T, int VEC, int NV = 1, typename... A>
+template <typename T, int VEC, int K, int NV = 1, typename... A>
 int backward_nv(int nv, A... args) {
   if constexpr (NV > max_nv(VEC)) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    return nv == NV ? backward<T, VEC, NV>(args...) : backward_nv<T, VEC, NV + 1>(nv, args...);
+    return nv == NV ? backward<T, VEC, K, NV>(args...)
+                    : backward_nv<T, VEC, K, NV + 1>(nv, args...);
+  }
+}
+
+// The backward with K = k cotangents, 1 to MAX_COTANGENTS.
+template <typename T, int VEC, int K = 1, typename... A>
+int backward_k(int k, int nv, A... args) {
+  if constexpr (K > MAX_COTANGENTS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return k == K ? backward_nv<T, VEC, K>(nv, args...)
+                  : backward_k<T, VEC, K + 1>(k, nv, args...);
   }
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// The plan kernels/norm.py::plan gives: W a multiple of x's 16-byte vector,
-// `lanes` a power of two up to 32, lanes * nv vectors covering the row.
-bool valid(int x_bf16, int rows, int width, int lanes, int nv) {
-  const int vec = x_bf16 ? 8 : 4;
+// The plan kernels/norm.py::plan gives for vectors of 8 values (vec8) or 4:
+// W a multiple of the vector, `lanes` a power of two up to 32, lanes * nv
+// vectors covering the row.
+bool valid(bool vec8, int rows, int width, int lanes, int nv) {
+  const int vec = vec8 ? 8 : 4;
   return rows >= 1 && width >= 1 && width % vec == 0 && lanes >= 1 && lanes <= 32 &&
          (lanes & (lanes - 1)) == 0 && nv >= 1 && nv <= max_nv(vec) &&
          static_cast<long long>(lanes) * nv * vec >= width &&
@@ -433,24 +483,33 @@ extern "C" int tdspa_row_norm_forward(const void* x, const void* scale, void* ou
   return forward_nv<float, 4>(nv, x, s, out, out_bf16, centered, rows, width, lanes, st);
 }
 
-// partial: f32 [parts, width] scratch, one row a block of the backward's
-// grid; dscale: f32 [width].
-extern "C" int tdspa_row_norm_backward(const void* x, const void* scale, const void* dy, void* dx,
-                                       void* partial, void* dscale, int x_bf16, int dy_bf16,
-                                       int centered, int rows, int width, int lanes, int nv,
-                                       int parts, void* stream) {
-  if (!valid(x_bf16, rows, width, lanes, nv) || parts < 1 ||
-      !(aligned16(x) && aligned16(scale) && aligned16(dy) && aligned16(dx))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// dy0..dy3: the cotangents, `cotangents` of them (1 to 4; the rest may be
+// null), all of dy_bf16's dtype, summed in that order; partial: f32
+// [parts, width] scratch, one row a block of the backward's grid; dscale:
+// f32 [width].
+extern "C" int tdspa_row_norm_backward(const void* x, const void* scale, const void* dy0,
+                                       const void* dy1, const void* dy2, const void* dy3,
+                                       void* dx, void* partial, void* dscale, int cotangents,
+                                       int x_bf16, int dy_bf16, int centered, int rows,
+                                       int width, int lanes, int nv, int parts, void* stream) {
+  const Cotangents dy{{dy0, dy1, dy2, dy3}};
+  const bool wide = !x_bf16 && dy_bf16 && width % 8 == 0;  // f32 x in 8-value vectors
+  bool ok = valid(x_bf16 || wide, rows, width, lanes, nv) && parts >= 1 && cotangents >= 1 &&
+            cotangents <= MAX_COTANGENTS && aligned16(x) && aligned16(scale) && aligned16(dx);
+  for (int j = 0; ok && j < cotangents; ++j) ok = dy.p[j] != nullptr && aligned16(dy.p[j]);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const auto* s = static_cast<const float*>(scale);
   auto* p = static_cast<float*>(partial);
   auto* ds = static_cast<float*>(dscale);
   if (x_bf16) {
-    return backward_nv<uint16_t, 8>(nv, x, s, dy, dy_bf16, dx, p, ds, centered, rows, width,
-                                    lanes, parts, st);
+    return backward_k<uint16_t, 8>(cotangents, nv, x, s, dy, dy_bf16, dx, p, ds, centered, rows,
+                                   width, lanes, parts, st);
   }
-  return backward_nv<float, 4>(nv, x, s, dy, dy_bf16, dx, p, ds, centered, rows, width, lanes,
-                               parts, st);
+  if (wide) {
+    return backward_k<float, 8>(cotangents, nv, x, s, dy, dy_bf16, dx, p, ds, centered, rows,
+                                width, lanes, parts, st);
+  }
+  return backward_k<float, 4>(cotangents, nv, x, s, dy, dy_bf16, dx, p, ds, centered, rows,
+                              width, lanes, parts, st);
 }

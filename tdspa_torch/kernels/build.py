@@ -75,9 +75,9 @@ ENTRIES = {
     "tdspa_attention_backward": ("attention_backward", [_P] * 12 + [_I] * 5 + [_F, _P]),
     # (x, scale, out, x_bf16, out_bf16, centered, rows, width, lanes, nv)
     "tdspa_row_norm_forward": ("norm", [_P] * 3 + [_I] * 7 + [_P]),
-    # (x, scale, dy, dx, partial, dscale, x_bf16, dy_bf16, centered, rows, width, lanes, nv,
-    #  parts)
-    "tdspa_row_norm_backward": ("norm", [_P] * 6 + [_I] * 8 + [_P]),
+    # (x, scale, dy0, dy1, dy2, dy3, dx, partial, dscale, cotangents, x_bf16, dy_bf16,
+    #  centered, rows, width, lanes, nv, parts)
+    "tdspa_row_norm_backward": ("norm", [_P] * 9 + [_I] * 9 + [_P]),
     # (x, h, bias, layer_scale, x_out, scale, norm_bias, out, x_bf16, h_bf16, out_bf16, eps,
     #  rows, width, lanes, nv)
     "tdspa_vit_residual_norm": ("vit_block", [_P] * 8 + [_I] * 3 + [_F] + [_I] * 4 + [_P]),

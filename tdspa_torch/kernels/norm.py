@@ -18,6 +18,14 @@ the other. Where autograd records on CUDA tensors it goes through
 on CPU tensors autograd records through the eager chain itself, so CPU
 gradients stay what they were. ``row_norm.launches`` and
 ``row_norm_backward.launches`` count kernel launches.
+
+``row_norm_shared`` is the norm that several projections read while autograd
+records (a block's query norm: query, key, value and the cross-attention's
+query): one launch writes the compute dtype, and each reader gets its own
+tensor over that output, so that its cotangent reaches the backward apart.
+The backward kernel then sums the readers' cotangents in f32 registers.
+``row_norm_shared.launches`` counts its forward launches and
+``row_norm_shared.cotangents`` the cotangents its backward launches summed.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ MAX_VALUES = 1536  # of a row that one warp's registers hold
 # The backward's blocks an SM: whole waves whether 1, 2, 3, 4 or 6 of its
 # blocks are resident at once (its registers allow 1 to 3 on an H100).
 BACKWARD_BLOCKS_PER_SM = 12
+MAX_COTANGENTS = 4  # the backward kernel's dy operands, summed in f32
 
 
 def row_norm_reference(x, scale, centered: bool, out_dtype, bias=None, eps=EPS):
@@ -119,6 +128,17 @@ def plan(width: int, itemsize: int) -> dict:
             "rows_per_block": WARPS * (32 // lanes) * per_group}
 
 
+def backward_plan(width: int, x_itemsize: int, dy_itemsize: int) -> dict:
+    """The backward's plan: ``plan`` of x's 16-byte vectors, or, for f32 x
+    with bf16 cotangents and a width that is a multiple of 8, of 8-value
+    vectors, so that each cotangent moves in 16-byte words (in 8-byte ones,
+    three cotangents read 57 % of the byte bound on an H100 at widths 384 and
+    1280, against 90 and 72 %)."""
+    if x_itemsize == 4 and dy_itemsize == 2 and width % 8 == 0:
+        return plan(width, 2)
+    return plan(width, x_itemsize)
+
+
 def backward_parts(rows: int, width_plan: dict, sms: int) -> int:
     """The backward's grid, and the rows of its f32 dscale partials (one a
     block): ``BACKWARD_BLOCKS_PER_SM`` blocks an SM, at most one a tile of
@@ -184,40 +204,71 @@ def launch(x, scale, centered: bool, out_dtype):
 row_norm.launches = 0
 
 
+def _cotangents(x, dy) -> tuple:
+    """dy as a tuple of 1 to ``MAX_COTANGENTS`` cotangents of x's shape and
+    one dtype."""
+    dys = (dy,) if isinstance(dy, torch.Tensor) else tuple(dy)
+    if not 1 <= len(dys) <= MAX_COTANGENTS:
+        raise ValueError(f"the row-norm backward sums 1 to {MAX_COTANGENTS} cotangents; "
+                         f"got {len(dys)}")
+    for d in dys:
+        if d.shape != x.shape:
+            raise ValueError(f"dy must be {tuple(x.shape)}, got {tuple(d.shape)}")
+        if d.dtype != dys[0].dtype:
+            raise TypeError(f"cotangents of one dtype; got {dys[0].dtype} and {d.dtype}")
+    return dys
+
+
+def cotangent_sum(dys):
+    """The cotangents' sum in f32 (f64 for f64 ones), added in the order
+    given; a single cotangent as it is."""
+    if len(dys) == 1:
+        return dys[0]
+    compute = torch.promote_types(dys[0].dtype, torch.float32)
+    total = dys[0].to(compute)
+    for d in dys[1:]:
+        total = total + d.to(compute)
+    return total
+
+
 def row_norm_backward(x, scale, dy, centered: bool):
     """(dx, dscale) for the cotangent dy of ``row_norm(x, scale, centered,
-    dy.dtype)``: dx in x's dtype, dscale f32.
+    dy.dtype)``: dx in x's dtype, dscale f32. dy may be a sequence of 1 to
+    ``MAX_COTANGENTS`` cotangents of one dtype, one from each reader of the
+    output: their f32 sum (``cotangent_sum``) is then the cotangent.
 
     CUDA tensors launch the backward kernel (``launch_backward``: f32 or bf16
-    x and dy, f32 scale); CPU tensors run ``row_norm_backward_reference``.
+    x and dy, f32 scale), which sums the cotangents in registers; CPU tensors
+    run ``row_norm_backward_reference`` of ``cotangent_sum``.
     ``row_norm_backward.launches`` counts kernel launches.
     """
-    if dy.shape != x.shape:
-        raise ValueError(f"dy must be {tuple(x.shape)}, got {tuple(dy.shape)}")
-    if not on_cuda("row_norm_backward", x, scale, dy):
-        return row_norm_backward_reference(x, scale, dy, centered)
-    _check_cuda(x, scale, dy.dtype)
-    return launch_backward(x, scale, dy, centered)
+    dys = _cotangents(x, dy)
+    if not on_cuda("row_norm_backward", x, scale, *dys):
+        return row_norm_backward_reference(x, scale, cotangent_sum(dys), centered)
+    _check_cuda(x, scale, dys[0].dtype)
+    return launch_backward(x, scale, dys, centered)
 
 
-def launch_backward(x, scale, dy, centered: bool):
-    """The backward kernel's launch on checked CUDA operands: the row kernel
-    on ``backward_parts`` blocks, then the sum of its per-block dscale
-    partials."""
-    x, scale, dy = (aligned(t.contiguous()) for t in (x, scale, dy))
+def launch_backward(x, scale, dys, centered: bool):
+    """The backward kernel's launch on checked CUDA operands (``dys``, a tuple
+    of 1 to 4 cotangents): the row kernel on ``backward_parts`` blocks, then
+    the sum of its per-block dscale partials."""
+    x, scale = aligned(x.contiguous()), aligned(scale.contiguous())
+    dys = [aligned(d.contiguous()) for d in dys]
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     n, width = rows(x, "the row-norm kernel"), x.shape[-1]
     if n == 0 or width == 0:
         return dx, torch.zeros(width, dtype=torch.float32, device=x.device)
     dscale = torch.empty(width, dtype=torch.float32, device=x.device)
-    p = plan(width, x.element_size())
+    p = backward_plan(width, x.element_size(), dys[0].element_size())
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     parts = backward_parts(n, p, sms)
     partial = torch.empty((parts, width), dtype=torch.float32, device=x.device)
-    build.launch("tdspa_row_norm_backward", x.device, x.data_ptr(), scale.data_ptr(),
-                 dy.data_ptr(), dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(),
-                 int(x.dtype == torch.bfloat16), int(dy.dtype == torch.bfloat16), int(centered),
-                 n, width, p["lanes"], p["steps"], parts)
+    pointers = [d.data_ptr() for d in dys] + [None] * (MAX_COTANGENTS - len(dys))
+    build.launch("tdspa_row_norm_backward", x.device, x.data_ptr(), scale.data_ptr(), *pointers,
+                 dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(), len(dys),
+                 int(x.dtype == torch.bfloat16), int(dys[0].dtype == torch.bfloat16),
+                 int(centered), n, width, p["lanes"], p["steps"], parts)
     row_norm_backward.launches += 1
     return dx, dscale
 
@@ -250,3 +301,59 @@ def row_norm_fn(x, scale, centered: bool, out_dtype):
     ``row_norm_backward`` on the saved x (the backward kernel on CUDA tensors,
     ``row_norm_backward_reference`` on CPU tensors)."""
     return _RowNorm.apply(x, scale, centered, out_dtype)
+
+
+class _RowNormShared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, centered, out_dtype, readers):
+        ctx.save_for_backward(x, scale)
+        ctx.centered = centered
+        if x.is_cuda:
+            out = launch(x, scale, centered, out_dtype)
+            row_norm_shared.launches += 1
+        else:
+            out = row_norm_reference(x, scale, centered, out_dtype)
+        # One tensor a reader over the one output: each its own autograd edge.
+        return tuple(out.view_as(out) for _ in range(readers))
+
+    @staticmethod
+    def backward(ctx, *dys):
+        x, scale = ctx.saved_tensors
+        dx, dscale = row_norm_backward(x, scale, dys, ctx.centered)
+        if x.is_cuda:
+            row_norm_shared.cotangents += len(dys)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dscale if ctx.needs_input_grad[1] else None, None, None, None)
+
+
+def row_norm_shared_fn(x, scale, centered: bool, out_dtype, readers: int):
+    """Differentiable row norm read by ``readers`` projections: one forward
+    (the kernel on CUDA tensors, ``row_norm_reference`` on CPU tensors), a
+    tuple of ``readers`` tensors over its output; backward
+    ``row_norm_backward`` on their cotangents (summed in f32)."""
+    return _RowNormShared.apply(x, scale, centered, out_dtype, readers)
+
+
+def row_norm_shared(x, scale, centered: bool, out_dtype, readers: int):
+    """x normed as ``row_norm`` does, as a tuple of ``readers`` tensors in
+    ``out_dtype``, one for each projection that reads the norm (1 to
+    ``MAX_COTANGENTS``).
+
+    CUDA tensors: ``row_norm_shared_fn``, one launch whose output every
+    reader sees, and one backward launch that sums the readers' cotangents
+    in f32. CPU tensors: the plain version, the chain this replaces on the
+    card: the norm in f32 (``row_norm_reference``), then one cast a reader,
+    autograd adding the readers' cotangents in f32.
+    """
+    _check(x, scale)
+    if not 1 <= readers <= MAX_COTANGENTS:
+        raise ValueError(f"a shared row norm has 1 to {MAX_COTANGENTS} readers; got {readers}")
+    if not on_cuda("row_norm_shared", x, scale):
+        out = row_norm_reference(x, scale, centered, torch.promote_types(x.dtype, torch.float32))
+        return tuple(out.to(out_dtype) for _ in range(readers))
+    _check_cuda(x, scale, out_dtype)
+    return row_norm_shared_fn(x, scale, centered, out_dtype, readers)
+
+
+row_norm_shared.launches = 0
+row_norm_shared.cotangents = 0

@@ -62,6 +62,10 @@ WRAPPERS = {
     "row_norm": lambda: norm.row_norm(_meta(3, 64), _meta(64), True, torch.float32),
     "row_norm_backward": lambda: norm.row_norm_backward(_meta(3, 64), _meta(64), _meta(3, 64),
                                                         True),
+    "row_norm_backward_summed": lambda: norm.row_norm_backward(
+        _meta(3, 64), _meta(64), (_meta(3, 64), _meta(3, 64), _meta(3, 64)), True),
+    "row_norm_shared": lambda: norm.row_norm_shared(_meta(3, 64), _meta(64), True,
+                                                    torch.bfloat16, 3),
     "quant_matmul": lambda: quant_matmul.quant_matmul(_meta(3, 64), _meta(64, 32)),
     "vit_residual_norm": lambda: vit_block.vit_residual_norm(
         _meta(3, 64), norm=(_meta(64), _meta(64), 1e-6)),

@@ -729,6 +729,108 @@ def test_row_norm_kernel_matches_plain_version(cuda_device, width, x_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cotangents", [1, 2, 3, 4])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [96, 256, 384, 1024, 1280])
+def test_row_norm_backward_sums_its_cotangents(cuda_device, width, x_dtype, cotangents):
+    """The backward kernel with 1 to 4 bf16 cotangents (a shared norm's
+    readers) against ``row_norm_backward_reference`` of their f32 sum, centered
+    and RMS, over 777 rows, the first zero: within f32 rounding of each row's
+    largest value, a bf16 ulp where dx is bf16; bit-equal from run to run."""
+    from tdspa_torch.kernels import norm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(width + cotangents)
+    x = (torch.randn((777, width), generator=gen, device=cuda_device) * 2 + 0.5).to(x_dtype)
+    x[0] = 0.0
+    scale = torch.rand(width, generator=gen, device=cuda_device) + 0.5
+    dys = [torch.randn(x.shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+           for _ in range(cotangents)]
+    for centered in (True, False):
+        before = norm.row_norm_backward.launches
+        dx, dscale = norm.row_norm_backward(x, scale, dys, centered)
+        torch.cuda.synchronize()
+        assert norm.row_norm_backward.launches == before + 1
+        want_dx, want_dscale = norm.row_norm_backward_reference(
+            x, scale, norm.cotangent_sum(dys), centered)
+        assert dx.dtype == x_dtype and dscale.dtype == torch.float32
+        _close_rows(dx, want_dx, 1e-5, 2.0 ** -7 if x_dtype == torch.bfloat16 else 1e-5)
+        torch.testing.assert_close(dscale, want_dscale, rtol=1e-4,
+                                   atol=1e-4 * want_dscale.abs().max().item())
+        again = norm.row_norm_backward(x, scale, dys, centered)
+        assert torch.equal(again[0], dx) and torch.equal(again[1], dscale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cotangents", [1, 3])
+def test_row_norm_backward_sums_bf16_cotangents_off_the_8_value_vector(cuda_device, cotangents):
+    """f32 rows of 100 values (no multiple of 8) with bf16 cotangents take
+    x's own 4-value vectors, each cotangent in 8-byte words: against the
+    plain backward of their f32 sum."""
+    from tdspa_torch.kernels import norm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(cotangents)
+    x = torch.randn((513, 100), generator=gen, device=cuda_device) * 2 + 0.5
+    scale = torch.rand(100, generator=gen, device=cuda_device) + 0.5
+    dys = [torch.randn(x.shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+           for _ in range(cotangents)]
+    assert norm.backward_plan(100, 4, 2) == norm.plan(100, 4)
+    for centered in (True, False):
+        dx, dscale = norm.row_norm_backward(x, scale, dys, centered)
+        want_dx, want_dscale = norm.row_norm_backward_reference(
+            x, scale, norm.cotangent_sum(dys), centered)
+        _close_rows(dx, want_dx, 1e-5, 1e-5)
+        torch.testing.assert_close(dscale, want_dscale, rtol=1e-4,
+                                   atol=1e-4 * want_dscale.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cross", [False, True])
+def test_block_shared_query_norm_matches_todays_chain_on_the_card(cuda_device, cross):
+    """A bf16 block with an f32 residual under autograd on the card: one
+    shared forward launch for ``norm_q`` and one backward summing its 3 (4)
+    readers' cotangents; every gradient against the chain it replaced (f32
+    norms, one cast a projection) on the same card, within 1e-2 of each
+    gradient's largest value: the norms' backward sums a row in another f32
+    order, and the bf16 GEMMs behind it may round that the other way (up to
+    3.6e-3 of the largest value seen, one bf16 ulp), where a cotangent
+    missing or summed twice moves a gradient by its own size; the output
+    bit for bit."""
+    from tdspa_torch.core.attention import ParallelTransformerBlock, reset_parameters
+    from tdspa_torch.kernels import norm
+
+    block = ParallelTransformerBlock(256, 512, 2, 192, kv_width=128 if cross else None,
+                                     dtype=torch.bfloat16, use_fused=True, device=cuda_device)
+    reset_parameters(block, torch.Generator(device=cuda_device).manual_seed(0))
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((3, 64, 256), generator=gen, device=cuda_device)
+    kv = torch.randn((3, 40, 128), generator=gen, device=cuda_device) if cross else None
+
+    def todays(a, b):
+        normed = block.norm_q(a)
+        out = a + block.self_att(normed, normed)
+        if b is not None:
+            out = out + block.cross_att(normed, b)
+        h = torch.nn.functional.gelu(block.MLP_in(block.norm_attn(out)),
+                                     approximate="tanh")
+        return out + block.MLP_out(h).float()
+
+    outs, grads = [], []
+    counts = (norm.row_norm_shared.launches, norm.row_norm_shared.cotangents)
+    for forward in (block, todays):
+        xs = x.clone().requires_grad_()
+        out = forward(xs, kv)
+        grads.append(torch.autograd.grad(out.square().mean(), [xs, *block.parameters()]))
+        outs.append(out.detach())
+    assert (norm.row_norm_shared.launches - counts[0],
+            norm.row_norm_shared.cotangents - counts[1]) == (1, 4 if cross else 3)
+    assert torch.equal(outs[0], outs[1]), (outs[0] - outs[1]).abs().max().item()
+    names = ["x"] + [name for name, _ in block.named_parameters()]
+    for name, got, want in zip(names, *grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-2 * want.abs().max().item(),
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
 def test_row_norm_kernel_copies_unaligned_operands_and_refuses_odd_widths(cuda_device):
     """Operands off a 16-byte boundary (x, and dy in the backward) are copied
     to aligned ones and give the plain result; widths that are no multiple

@@ -2,14 +2,17 @@
 the eager chain ``_Norm`` ran before it, bit for bit; the norms a block feeds
 to its projections write the compute dtype only where that gives the same
 bits; the autograd Function's plain backward is the gradient of the chain;
-the launch plan covers every width of the two models. The kernel itself runs
-in ``tests/test_torch_cuda.py``.
+the shared norm (one output, one tensor a reader) gives the chain's values
+and gradients, its cotangents summed in f32; the launch plan covers every
+width of the two models. The kernel itself runs in
+``tests/test_torch_cuda.py``.
 """
 
 from pathlib import Path
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from tdspa_torch.core import attention as tattn
 from tdspa_torch.kernels import norm
@@ -86,12 +89,15 @@ def _block(dtype=torch.bfloat16, residual_dtype=torch.float32, quantize=False, c
 
 
 def _norm_dtypes(block, *args):
-    """The dtypes ``norm_q`` and ``norm_attn`` write in one call, and its output."""
+    """The dtypes ``norm_q`` and ``norm_attn`` write in one call (a tuple of
+    one a reader where the norm gives its readers tensors of their own), and
+    the call's output."""
     seen = {}
 
     def hook(name):
         def record(module, args, out):
-            seen[name] = out.dtype
+            seen[name] = out.dtype if isinstance(out, torch.Tensor) else tuple(
+                o.dtype for o in out)
         return record
 
     hooks = [getattr(block, name).register_forward_hook(hook(name))
@@ -104,9 +110,10 @@ def _norm_dtypes(block, *args):
 
 @pytest.mark.parametrize("cross", [False, True])
 def test_block_norms_write_the_compute_dtype_with_the_same_bits(cross):
-    """bf16 compute, f32 residual, no autograd: the two norms before the
-    projections write bf16, and the block's output equals the output with the
-    norms in f32 (autograd recording keeps them f32) bit for bit."""
+    """bf16 compute, f32 residual: the two norms before the projections write
+    bf16, without autograd one tensor for all of the query norm's readers,
+    under autograd one a reader (3, or 4 with the cross-attention); the
+    block's output is the same bit for bit."""
     block = _block(cross=cross)
     gen = torch.Generator().manual_seed(2)
     x = torch.randn((2, 5, 16), generator=gen)
@@ -114,23 +121,172 @@ def test_block_norms_write_the_compute_dtype_with_the_same_bits(cross):
     with torch.no_grad():
         seen, fast = _norm_dtypes(block, x, kv)
     assert seen == {"norm_q": torch.bfloat16, "norm_attn": torch.bfloat16}
-    seen, kept = _norm_dtypes(block, x, kv)
-    assert seen == {"norm_q": torch.float32, "norm_attn": torch.float32}
-    assert fast.dtype == kept.dtype == torch.float32 and torch.equal(fast, kept.detach())
+    seen, recorded = _norm_dtypes(block, x, kv)
+    assert seen == {"norm_q": (torch.bfloat16,) * (4 if cross else 3),
+                    "norm_attn": torch.bfloat16}
+    assert fast.dtype == recorded.dtype == torch.float32
+    assert torch.equal(fast, recorded.detach())
 
 
 @pytest.mark.parametrize("case", ["autograd", "quantize", "bf16_residual"])
 def test_block_norms_keep_their_dtype(case):
-    """Where autograd records, under ``quantize`` (the int8 layers quantise
-    the f32 values) and with a bf16 residual over f32 compute, the norms
-    write their own dtype (the residual's)."""
+    """Under ``quantize`` (the int8 layers quantise the f32 values) and with a
+    bf16 residual over f32 compute, the norms write their own dtype (the
+    residual's). Where autograd records, the projections read bf16, each
+    its own tensor, and their gradients sum in f32: on the CPU every reader's
+    tensor is its own cast of one f32 norm, where autograd adds them."""
     residual = torch.bfloat16 if case == "bf16_residual" else torch.float32
     block = _block(dtype=torch.float32 if case == "bf16_residual" else torch.bfloat16,
                    residual_dtype=residual, quantize=case == "quantize")
     x = torch.randn((2, 5, 16), generator=torch.Generator().manual_seed(3)).to(residual)
-    with torch.set_grad_enabled(case == "autograd"):
-        seen, _ = _norm_dtypes(block, x)
-    assert seen == {"norm_q": residual, "norm_attn": residual}
+    if case != "autograd":
+        with torch.no_grad():
+            seen, _ = _norm_dtypes(block, x)
+        assert seen == {"norm_q": residual, "norm_attn": residual}
+        return
+    read = {}
+
+    def hook(name):
+        def record(module, args):
+            read[name] = args[0]
+        return record
+
+    projections = {"q": block.self_att.dense_query, "k": block.self_att.dense_key,
+                   "v": block.self_att.dense_value, "mlp": block.MLP_in}
+    hooks = [m.register_forward_pre_hook(hook(n)) for n, m in projections.items()]
+    seen, _ = _norm_dtypes(block, x)
+    for h in hooks:
+        h.remove()
+    assert seen == {"norm_q": (torch.bfloat16,) * 3, "norm_attn": torch.bfloat16}
+    assert all(t.dtype == torch.bfloat16 for t in read.values())
+    q, k, v = read["q"], read["k"], read["v"]
+    assert q is not k and k is not v and q is not v
+    # Each reader's edge is a cast of the one f32 norm: the sum is in f32.
+    sources = {id(t.grad_fn.next_functions[0][0]) for t in (q, k, v)}
+    assert len(sources) == 1 and all(type(t.grad_fn).__name__ == "ToCopyBackward0"
+                                     for t in (q, k, v))
+
+
+def todays_block(block, x, kv=None):
+    """``ParallelTransformerBlock.forward`` as it was before the shared norm:
+    under autograd both norms wrote f32 and each projection cast its input to
+    bf16; without autograd they wrote bf16 for all of them."""
+    dtype = None if torch.is_grad_enabled() else block.dtype
+    normed = block.norm_q(x, dtype)
+    out = x + block.self_att(normed, normed)
+    if kv is not None:
+        out = out + block.cross_att(normed, kv)
+    h = F.gelu(block.MLP_in(block.norm_attn(out, dtype)), approximate="tanh")
+    return out + block.MLP_out(h).to(block.residual_dtype)
+
+
+@pytest.mark.parametrize("cross", [False, True])
+def test_block_gradients_equal_todays_chain(cross):
+    """Under autograd every parameter's gradient and the input's equal those
+    of an explicit copy of the chain the shared norm replaced, within f32
+    summation rounding; without autograd the output is that chain's bit for
+    bit."""
+    block = _block(cross=cross)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((2, 5, 16), generator=gen)
+    kv = torch.randn((2, 6, 12), generator=gen) if cross else None
+    with torch.no_grad():
+        assert torch.equal(block(x, kv), todays_block(block, x, kv))
+    grads = []
+    for forward in (block, lambda a, b: todays_block(block, a, b)):
+        xs = x.clone().requires_grad_()
+        loss = forward(xs, kv).square().mean()
+        grads.append(torch.autograd.grad(loss, [xs, *block.parameters()]))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * want.abs().max().item())
+
+
+def _shared_inputs(readers, centered, x_dtype=torch.float32):
+    x, scale = _inputs((3, 7, 64), x_dtype, seed=6 + readers + 10 * centered)
+    gen = torch.Generator().manual_seed(readers)
+    dys = [torch.randn((3, 7, 64), generator=gen).to(torch.bfloat16) for _ in range(readers)]
+    return x, scale, dys
+
+
+@pytest.mark.parametrize("readers", [1, 2, 3, 4])
+@pytest.mark.parametrize("centered", [True, False])
+def test_shared_norm_is_the_f32_norm_rounded_once(readers, centered):
+    """The shared entry (the plain version) and its autograd Function (the
+    launch's counterpart on the card) give ``readers`` bf16 tensors, each the
+    f32 norm rounded once, each with its own autograd edge."""
+    x, scale, _ = _shared_inputs(readers, centered)
+    want = eager_chain(x, scale, centered, torch.float32).to(torch.bfloat16)
+    xs = x.clone().requires_grad_()
+    for fn in (norm.row_norm_shared, norm.row_norm_shared_fn):
+        outs = fn(xs, scale, centered, torch.bfloat16, readers)
+        assert len(outs) == readers
+        assert all(o.dtype == torch.bfloat16 and torch.equal(o, want) for o in outs)
+        edges = {(o.grad_fn, o.output_nr) for o in outs}
+        assert len({id(o) for o in outs}) == readers and len(edges) == readers
+    with torch.no_grad():
+        outs = norm.row_norm_shared_fn(x, scale, centered, torch.bfloat16, readers)
+    assert all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.parametrize("readers", [1, 2, 3, 4])
+@pytest.mark.parametrize("centered", [True, False])
+def test_shared_norm_gradients_equal_todays_chain(readers, centered):
+    """x and scale gradients through the shared Function (its backward sums
+    the readers' bf16 cotangents in f32) equal those of the chain it
+    replaces (an f32 norm, one cast a reader, autograd adding in f32),
+    within f32 summation rounding."""
+    x, scale, dys = _shared_inputs(readers, centered)
+    grads = []
+    for fn in (norm.row_norm_shared_fn, None):
+        xs, ss = x.clone().requires_grad_(), scale.clone().requires_grad_()
+        if fn is None:
+            full = eager_chain(xs, ss, centered, torch.float32)
+            outs = [full.to(torch.bfloat16) for _ in range(readers)]
+        else:
+            outs = fn(xs, ss, centered, torch.bfloat16, readers)
+        grads.append(torch.autograd.grad(outs, (xs, ss), dys))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("readers", [1, 2, 3, 4])
+@pytest.mark.parametrize("centered", [True, False])
+def test_plain_backward_takes_the_f32_sum_of_the_cotangents(readers, centered):
+    """``row_norm_backward`` of several cotangents is the backward of their
+    f32 sum, added in the order given."""
+    x, scale, dys = _shared_inputs(readers, centered, torch.bfloat16)
+    total = dys[0].float()
+    for d in dys[1:]:
+        total = total + d.float()
+    got = norm.row_norm_backward(x, scale, dys, centered)
+    want = norm.row_norm_backward_reference(x, scale, dys[0] if readers == 1 else total,
+                                            centered)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(norm.cotangent_sum(dys), dys[0] if readers == 1 else total)
+
+
+@pytest.mark.parametrize("readers", [2, 4])
+@pytest.mark.parametrize("centered", [True, False])
+def test_shared_function_passes_gradcheck_in_f64(readers, centered):
+    x, scale, _ = _clamped_row_inputs(centered)
+    args = (x.clone().requires_grad_(), scale.clone().requires_grad_())
+    assert torch.autograd.gradcheck(
+        lambda a, s: norm.row_norm_shared_fn(a, s, centered, torch.float64, readers), args)
+
+
+def test_shared_norm_and_summing_backward_refuse_what_the_kernel_does_not_take():
+    x, scale = _inputs((3, 64), torch.float32)
+    for readers in (0, 5):
+        with pytest.raises(ValueError, match="1 to 4 readers"):
+            norm.row_norm_shared(x, scale, True, torch.bfloat16, readers)
+    dy = torch.ones_like(x)
+    for dys in ((), (dy,) * 5):
+        with pytest.raises(ValueError, match="sums 1 to 4 cotangents"):
+            norm.row_norm_backward(x, scale, dys, True)
+    with pytest.raises(ValueError, match="dy must be"):
+        norm.row_norm_backward(x, scale, (dy, dy[:2]), True)
+    with pytest.raises(TypeError, match="cotangents of one dtype"):
+        norm.row_norm_backward(x, scale, (dy, dy.to(torch.bfloat16)), True)
 
 
 def _clamped_row_inputs(centered):
@@ -190,6 +346,19 @@ def test_plan_covers_the_row(width, itemsize):
     assert p["rows_per_block"] == norm.WARPS * (32 // p["lanes"]) * per_group
 
 
+@pytest.mark.parametrize("width", STACK_WIDTHS + HEAD_WIDTHS + (12, 100, 1532))
+def test_backward_plan_moves_bf16_cotangents_in_16_byte_words(width):
+    """f32 x with bf16 cotangents: 8-value vectors where the width is a
+    multiple of 8 (the source's rule too), else x's own plan; every other
+    pairing of dtypes takes x's plan."""
+    want = norm.plan(width, 2) if width % 8 == 0 else norm.plan(width, 4)
+    assert norm.backward_plan(width, 4, 2) == want
+    assert norm.backward_plan(width, 4, 4) == norm.plan(width, 4)
+    if width % 8 == 0:
+        assert norm.backward_plan(width, 2, 2) == norm.backward_plan(width, 2, 4) == want
+    assert "const bool wide = !x_bf16 && dy_bf16 && width % 8 == 0;" in CSRC.read_text()
+
+
 @pytest.mark.parametrize("width,itemsize", [(1537, 4), (1540, 4), (1544, 2), (1792, 4),
                                              (2048, 2)])
 def test_plan_refuses_rows_wider_than_a_warp_holds(width, itemsize):
@@ -215,6 +384,7 @@ def test_backward_grid_is_whole_waves_or_one_block_a_tile(rows):
 def test_constants_match_the_source():
     src = CSRC.read_text()
     assert f"constexpr int MAX_VALUES = {norm.MAX_VALUES};" in src
+    assert f"constexpr int MAX_COTANGENTS = {norm.MAX_COTANGENTS};" in src
     assert "constexpr int THREADS = 256;" in src and norm.WARPS == 256 // 32
     assert "return nv * vec <= 16 ? 2 : 1;" in src
     assert "norm" in norm.build.KERNELS
