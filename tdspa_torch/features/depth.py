@@ -3,15 +3,33 @@
 * ``VideoDepthEstimator``: the DINOv2 encoder (``features/vit.py``, its
   attention in the Hopper ViT kernel on a GPU) tapped at four layers, and a
   DPT decode head (projection -> multi-scale reassembly -> residual fusion
-  -> depth head) with the from-scratch temporal attention on the coarsest
-  fused map (``use_temporal``) or VDA's AnimateDiff-style motion modules
-  (``use_motion_modules``, from a converted checkpoint). Frames run in
-  groups of ``frame_chunk``; the last group is padded by repeating the last
-  frame, because padded frames take part in temporal attention.
+  -> depth head) with one of two temporal heads:
+  - ``use_temporal``: the JAX package's from-scratch temporal attention on
+    the coarsest fused map. Frames run in disjoint groups of
+    ``frame_chunk``; the last group is padded by repeating the last frame,
+    because padded frames take part in temporal attention.
+  - ``use_motion_modules``: Video Depth Anything's temporal head
+    (``dpt_temporal.py::DPTHeadTemporal``): four AnimateDiff motion modules,
+    on the projected layers 3 and 4 (``out_channels[2]``, ``[3]`` wide)
+    and after the two coarsest fusions (``features`` wide), and VDA's video
+    schedule (``video_depth.py::infer_video_depth``, ``vda_windows``):
+    overlapping windows of 32 frames whose first 10 inputs are keyframes of
+    the window before. VDA's cross-window scale-and-shift alignment is not
+    run: each window gives its new frames as the network computes them.
+  ``vda_model`` gives the arguments of a released VDA model by name.
+* ``depth_window``: one group or window through the backbone and head; it
+  counts ``depth_window.windows`` and ``depth_window.frame_passes``.
 * ``convert_vda_params`` / ``motion_module_structure``: a released
   ``video_depth_anything_*.pth`` state_dict -> the flax parameter tree
   (numpy), which ``from_checkpoint`` loads.
 * ``ConstantDepthProvider``: unit depth (the reference's z = 1 fallback).
+
+Spans, inside the pipeline's ``tdspa.video.depth``: ``tdspa.depth.window``
+(each group or window) holds ``tdspa.depth.backbone`` (the ViT's
+``tdspa.vit.*`` spans and the taps' norms), ``tdspa.depth.reassemble``
+(projections, resize layers, ``scratch_*``), ``tdspa.depth.motion`` (each
+motion module, or ``temporal_3``), ``tdspa.depth.fusion`` and
+``tdspa.depth.output`` (``head_conv*`` and the resizes).
 
 Parameter names and layouts are the flax tree's, so a JAX parameter tree
 loads through ``params_from_flax``. Every matrix product and convolution is
@@ -39,6 +57,7 @@ from tdspa_torch.features.vit import Dinov2, ViTConfig
 from tdspa_torch.infer.convert import params_from_flax, params_to_flax
 from tdspa_torch.ops.resize import resize, resize_align_corners
 from tdspa_torch.utils.device import resolve_device
+from tdspa_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -50,6 +69,46 @@ VDA_MODEL_CONFIGS = {
     "vitl": {"encoder": "vitl", "features": 256,
              "out_channels": [256, 512, 1024, 1024], "layer_idxs": [4, 11, 17, 23]},
 }
+# Released Video Depth Anything models and their encoders.
+VDA_MODELS = {
+    "depth-anything/Video-Depth-Anything-Large": "vitl",
+}
+# VDA's video schedule (video_depth.py: INFER_LEN, OVERLAP, KEYFRAMES).
+VDA_WINDOW, VDA_OVERLAP = 32, 10
+VDA_KEYFRAMES = (0, 12, 24, 25, 26, 27, 28, 29, 30, 31)
+
+
+def vda_model(name: str) -> dict:
+    """``VideoDepthEstimator``'s arguments for a released Video Depth
+    Anything model (``VDA_MODELS``): its encoder, and VDA's temporal head in
+    place of the from-scratch one. ``ValueError`` for another name."""
+    if name not in VDA_MODELS:
+        raise ValueError(f"unknown Video Depth Anything model {name!r}: one of "
+                         f"{sorted(VDA_MODELS)}")
+    return {"encoder": VDA_MODELS[name], "use_temporal": False, "use_motion_modules": True}
+
+
+def vda_windows(num_frames: int) -> list[tuple[list[int], int]]:
+    """VDA's windows over ``num_frames`` frames: (input frame indices, the
+    position of the window's first new frame) for each.
+
+    Window 0 reads frames 0 .. 31 and gives them all. Window k reads the
+    previous window's inputs at ``VDA_KEYFRAMES``, then frames 22k + 10 ..
+    22k + 31, and gives those. Frames past the end are copies of the last,
+    as VDA pads the video. Windows run until every frame is given: VDA runs
+    ceil(T / 22), and a last one whose new frames are all padding changes
+    nothing without its alignment, so it is not run (150 frames: 7 either
+    way). The window is the motion modules' 32 positions.
+    """
+    last, stride = num_frames - 1, VDA_WINDOW - VDA_OVERLAP
+    inputs = [min(i, last) for i in range(VDA_WINDOW)]
+    out = [(inputs, 0)]
+    while (len(out) - 1) * stride + VDA_WINDOW < num_frames:
+        start = len(out) * stride
+        inputs = [inputs[k] for k in VDA_KEYFRAMES] + [
+            min(start + i, last) for i in range(VDA_OVERLAP, VDA_WINDOW)]
+        out.append((inputs, VDA_OVERLAP))
+    return out
 
 
 class _ResidualConvUnit(nn.Module):
@@ -131,14 +190,18 @@ class _GEGLUFeedForward(nn.Module):
 
 
 class _TemporalTransformerBlock(nn.Module):
+    """AnimateDiff TemporalTransformerBlock: pre-LN self-attentions over the
+    frames, then the pre-LN GEGLU feed-forward, each with a residual. Its
+    LayerNorms take ``nn.LayerNorm``'s eps, 1e-5."""
+
     def __init__(self, channels: int, num_attention_blocks: int, num_heads: int, dtype, device):
         super().__init__()
         self.num_attention_blocks = num_attention_blocks
         for a in range(num_attention_blocks):
-            self.add_module(f"norm_{a}", LayerNorm(channels, device=device))
+            self.add_module(f"norm_{a}", LayerNorm(channels, 1e-5, device=device))
             self.add_module(f"attention_{a}",
                             _TemporalSelfAttention(channels, num_heads, dtype, device))
-        self.ff_norm = LayerNorm(channels, device=device)
+        self.ff_norm = LayerNorm(channels, 1e-5, device=device)
         self.ff = _GEGLUFeedForward(channels, dtype, device)
 
     def forward(self, tokens):  # [S, T, C]
@@ -149,15 +212,16 @@ class _TemporalTransformerBlock(nn.Module):
 
 
 class _MotionModule(nn.Module):
-    """AnimateDiff-style TemporalTransformer3DModel as VDA uses it:
-    GroupNorm(32) -> proj_in -> temporal transformer blocks over the frame
-    axis at each spatial location -> proj_out -> + residual."""
+    """AnimateDiff's TemporalTransformer3DModel as VDA uses it (``TemporalModule``):
+    GroupNorm(32, eps 1e-6) over each frame -> proj_in -> temporal
+    transformer blocks over the frame axis at each spatial location ->
+    proj_out -> + residual."""
 
     def __init__(self, channels: int, num_transformer_blocks: int, num_attention_blocks: int,
                  dtype, device, num_heads: int = 8):
         super().__init__()
         self.num_transformer_blocks = num_transformer_blocks
-        self.norm = GroupNorm(min(32, channels), channels, eps=1e-5, device=device)
+        self.norm = GroupNorm(min(32, channels), channels, eps=1e-6, device=device)
         self.proj_in = Dense(channels, channels, dtype, device)
         for b in range(num_transformer_blocks):
             self.add_module(f"block_{b}", _TemporalTransformerBlock(
@@ -216,8 +280,14 @@ class DPTHead(nn.Module):
     """DPT decode head: 4 tapped ViT token maps -> dense depth [T H W 1].
 
     ``use_temporal``: the from-scratch temporal attention after the coarsest
-    fusion; ``use_motion_modules``: VDA's four motion modules, module i after
-    the i-th coarsest fusion stage (their index order).
+    fusion. ``use_motion_modules``: VDA's ``DPTHeadTemporal``:
+    ``motion_module_0`` on the projected layer 3 (``out_channels[2]`` wide)
+    and ``motion_module_1`` on the projected, resized layer 4
+    (``out_channels[3]``), both before their ``scratch`` convolutions;
+    ``motion_module_2`` and ``_3`` (``features`` wide) after ``fusion_3``
+    and ``fusion_2``; ``head_conv2`` and ``head_conv3`` in f32, from an f32
+    resize of ``head_conv1``'s output, as VDA runs ``output_conv2`` outside
+    autocast. The two heads exclude each other.
     """
 
     def __init__(self, in_dim: int, features: int, out_channels: Sequence[int],
@@ -225,6 +295,9 @@ class DPTHead(nn.Module):
                  motion_transformer_blocks: int = 1, motion_attention_blocks: int = 2,
                  dtype=torch.float32, device="cpu"):
         super().__init__()
+        if use_temporal and use_motion_modules:
+            raise ValueError("use_temporal and use_motion_modules are two temporal heads; "
+                             "pick one")
         self.use_temporal, self.use_motion_modules = use_temporal, use_motion_modules
         oc = list(out_channels)
         for i in range(4):
@@ -239,47 +312,83 @@ class DPTHead(nn.Module):
             self.add_module(f"fusion_{i}", _FusionBlock(features, i != 3, dtype, device))
         if use_temporal:
             self.temporal_3 = _TemporalAttention(features, dtype, device)
-        if use_motion_modules:
-            for i in range(4):
-                self.add_module(f"motion_module_{i}", _MotionModule(
-                    features, motion_transformer_blocks, motion_attention_blocks, dtype, device))
+        self.motion_widths = (oc[2], oc[3], features, features) if use_motion_modules else ()
+        for i, width in enumerate(self.motion_widths):
+            self.add_module(f"motion_module_{i}", _MotionModule(
+                width, motion_transformer_blocks, motion_attention_blocks, dtype, device))
+        out_dtype = torch.float32 if use_motion_modules else dtype
         self.head_conv1 = Conv(features, features // 2, 3, padding=1, dtype=dtype, device=device)
-        self.head_conv2 = Conv(features // 2, 32, 3, padding=1, dtype=dtype, device=device)
-        self.head_conv3 = Conv(32, 1, 1, dtype=dtype, device=device)
+        self.head_conv2 = Conv(features // 2, 32, 3, padding=1, dtype=out_dtype, device=device)
+        self.head_conv3 = Conv(32, 1, 1, dtype=out_dtype, device=device)
+
+    def _motion(self, idx: int, x):
+        if not self.use_motion_modules:
+            return x
+        with span("tdspa.depth.motion"):
+            return getattr(self, f"motion_module_{idx}")(x)
 
     def forward(self, taps, patch_hw, out_hw):
         """taps: 4x [T, Hp*Wp, D] token maps (CLS removed) -> [T H W 1]."""
         hp, wp = patch_hw
-        resized = []
-        for i, tokens in enumerate(taps):
-            x = getattr(self, f"project_{i}")(tokens.reshape(tokens.shape[0], hp, wp, -1))
-            if i in (0, 1, 3):
-                x = getattr(self, f"resize_{i}")(x)
-            resized.append(getattr(self, f"scratch_{i}")(x))
-
-        def motion(idx, x):
-            return getattr(self, f"motion_module_{idx}")(x) if self.use_motion_modules else x
-
-        path = self.fusion_3(resized[3], out_hw=resized[2].shape[1:3])
+        with span("tdspa.depth.reassemble"):
+            layers = []
+            for i, tokens in enumerate(taps):
+                x = getattr(self, f"project_{i}")(tokens.reshape(tokens.shape[0], hp, wp, -1))
+                layers.append(getattr(self, f"resize_{i}")(x) if i in (0, 1, 3) else x)
+        layers[2], layers[3] = self._motion(0, layers[2]), self._motion(1, layers[3])
+        with span("tdspa.depth.reassemble"):
+            rn = [getattr(self, f"scratch_{i}")(x) for i, x in enumerate(layers)]
+        with span("tdspa.depth.fusion"):
+            path = self.fusion_3(rn[3], out_hw=rn[2].shape[1:3])
         if self.use_temporal:
-            path = self.temporal_3(path)
-        path = motion(0, path)
-        path = motion(1, self.fusion_2(path, resized[2], out_hw=resized[1].shape[1:3]))
-        path = motion(2, self.fusion_1(path, resized[1], out_hw=resized[0].shape[1:3]))
-        path = motion(3, self.fusion_0(path, resized[0]))
-        h = resize_align_corners(self.head_conv1(path), out_hw)
-        h = self.head_conv3(F.relu(self.head_conv2(h)))
-        return F.relu(h)  # relative depth >= 0
+            with span("tdspa.depth.motion"):
+                path = self.temporal_3(path)
+        path = self._motion(2, path)
+        with span("tdspa.depth.fusion"):
+            path = self.fusion_2(path, rn[2], out_hw=rn[1].shape[1:3])
+        path = self._motion(3, path)
+        with span("tdspa.depth.fusion"):
+            path = self.fusion_1(path, rn[1], out_hw=rn[0].shape[1:3])
+            path = self.fusion_0(path, rn[0])
+        with span("tdspa.depth.output"):
+            h = self.head_conv1(path)
+            h = resize_align_corners(h.to(self.head_conv2.dtype), out_hw)
+            h = self.head_conv3(F.relu(self.head_conv2(h)))
+            return F.relu(h)  # relative depth >= 0
+
+
+def depth_window(estimator: "VideoDepthEstimator", frames, head_hw):
+    """One group or window of normalised frames [W h w 3] through the
+    backbone and the head -> depth [W oh ow 1] at ``head_hw``. Span
+    ``tdspa.depth.window``; counts ``depth_window.windows`` and
+    ``depth_window.frame_passes`` (frames through the backbone, padding and
+    keyframes included)."""
+    depth_window.windows += 1
+    depth_window.frame_passes += frames.shape[0]
+    p = estimator.vit_config.patch_size
+    with span("tdspa.depth.window"):
+        with span("tdspa.depth.backbone"):
+            taps = estimator._taps(frames)
+        return estimator.head(taps, (frames.shape[1] // p, frames.shape[2] // p), head_hw)
+
+
+depth_window.windows = 0
+depth_window.frame_passes = 0
 
 
 class VideoDepthEstimator:
     """video [T H W 3] uint8 -> depth [T H W 1] on the device.
 
-    Owns the weights, taps the backbone, groups the frames. ``input_size``
-    is the long side the backbone sees (snapped to patch multiples; 518 is
-    the reference); ``output_scale`` < 1 runs the head's full-resolution
-    tail smaller and upsamples the depth (approximate). Without ``params``
-    the first call warns and uses random weights from ``seed``.
+    Owns the weights, taps the backbone, groups the frames: in disjoint
+    groups of ``frame_chunk`` with the from-scratch head (``use_temporal``),
+    in VDA's overlapping windows (``vda_windows``) with the motion modules.
+    ``input_size`` is the long side the backbone sees (snapped to patch
+    multiples; 518 is the reference); ``output_scale`` < 1 runs the head's
+    full-resolution tail smaller and upsamples the depth (approximate). The
+    depth is resized back to the video's size bilinearly: with antialiasing
+    after groups, with ``align_corners`` after VDA's windows, as VDA resizes
+    it. Without ``params`` the first call warns and uses random weights from
+    ``seed``.
     ``fused_attention=False`` keeps the plain attention on a GPU too.
     """
 
@@ -334,12 +443,22 @@ class VideoDepthEstimator:
 
     @classmethod
     def from_checkpoint(cls, path: str, encoder: str = "vitb", **kwargs):
-        """Load a released ``video_depth_anything_*.pth``: motion modules are
-        converted when present, and the from-scratch ``temporal_3`` stays off."""
+        """Load a released ``video_depth_anything_*.pth``: its motion modules,
+        when present, as VDA's temporal head (the from-scratch ``temporal_3``
+        stays off). Motion modules of other widths than that head's raise
+        ``ValueError``."""
         state_dict = torch.load(path, map_location="cpu", weights_only=True)
         structure = motion_module_structure(state_dict.keys())
         est = cls(encoder=encoder, use_temporal=False, use_motion_modules=structure is not None,
                   motion_structure=structure, **kwargs)
+        if structure is not None:
+            widths = [state_dict[f"head.motion_modules.{i}.temporal_transformer.proj_in.weight"]
+                      .shape[1] for i in range(structure["modules"])]
+            if widths != list(est.head.motion_widths):
+                raise ValueError(
+                    f"the checkpoint's motion modules are {widths} wide; VDA's temporal head "
+                    f"places them at {list(est.head.motion_widths)} (out_channels[2], "
+                    "out_channels[3], features, features)")
         est.load_params(convert_vda_params(state_dict, encoder=encoder,
                                            vit_config=kwargs.get("vit_config"),
                                            head_cfg=kwargs.get("head_cfg")))
@@ -362,6 +481,13 @@ class VideoDepthEstimator:
         init_parameters(self.backbone, seed, self.device)
         init_parameters(self.head, seed + 1, self.device)
         self.has_weights = True
+
+    def chunk_invariant(self, chunk: int) -> bool:
+        """Whether depth over consecutive chunks of ``chunk`` frames equals the
+        whole video's: with disjoint groups, where the chunk is a multiple of
+        the group; never with VDA's windows, which overlap and read keyframes
+        of earlier windows."""
+        return not self.head.use_motion_modules and chunk % self.frame_chunk == 0
 
     def _taps(self, frames):
         """Tapped-layer token maps, final-layernormed (DINOv2's
@@ -397,17 +523,23 @@ class VideoDepthEstimator:
 
     def _forward(self, frames, out_hw):
         """Normalised frames -> depth resized back to ``out_hw``."""
-        p, chunk = self.vit_config.patch_size, self.frame_chunk
         t, gh, gw = frames.shape[:3]
+        head_hw = (max(int(round(gh * self.output_scale)), 1),
+                   max(int(round(gw * self.output_scale)), 1))
+        if self.head.use_motion_modules:
+            parts = []
+            for inputs, first in vda_windows(t):
+                index = torch.tensor(inputs, device=frames.device)
+                depth = depth_window(self, frames.index_select(0, index), head_hw)[first:]
+                with span("tdspa.depth.output"):
+                    parts.append(resize_align_corners(depth, out_hw))
+            return torch.cat(parts)[:t]
+        chunk = self.frame_chunk
         pad = (-t) % chunk
         if pad:
             frames = torch.cat([frames, frames[-1:].expand((pad,) + frames.shape[1:])])
-        head_hw = (max(int(round(gh * self.output_scale)), 1),
-                   max(int(round(gw * self.output_scale)), 1))
-        depth = torch.cat([
-            self.head(self._taps(frames[i : i + chunk]), (gh // p, gw // p), head_hw)
-            for i in range(0, t + pad, chunk)
-        ])[:t]
+        depth = torch.cat([depth_window(self, frames[i : i + chunk], head_hw)
+                           for i in range(0, t + pad, chunk)])[:t]
         return resize(depth, out_hw, method="bilinear")
 
 

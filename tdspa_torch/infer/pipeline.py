@@ -10,9 +10,13 @@ kernel ``tdspa_torch/csrc/lk.cu``, matcher kernel ``csrc/matcher.cu``),
 ``csrc/vit_attention.cu``), built lazily on the pipeline's device. A video
 longer than ``upload_chunk_frames`` streams to the device in chunks, as YUV
 4:2:0; each chunk is tracked (``track_chunks``), and the port's own DINO
-and depth stages run on it as it arrives (depth only when the chunk is a
-multiple of its 8-frame temporal groups). Providers passed in take the
-whole device video. Everything after the front ends is ``fused_tail``:
+stage runs on it as it arrives. The port's own depth stage does so only
+where depth over the chunks equals the whole video's
+(``VideoDepthEstimator.chunk_invariant``): with the from-scratch head, when
+the chunk is a multiple of its 8-frame temporal groups; never with Video
+Depth Anything's head (``depth_model``), whose 32-frame windows overlap and
+cross the chunks, so it runs once on the device video. Providers passed in
+take the whole device video. Everything after the front ends is ``fused_tail``:
 2D->3D lifting, bilinear feature sampling, the support/query split and the
 ``TrackAutoEncoder3D`` forward, all on the pipeline's device. With
 ``dtype=bfloat16`` (the default) the model's attention runs in the fused
@@ -39,7 +43,7 @@ import torch
 import torch.distributed as dist
 
 from tdspa_torch.data.batch_prep import split_and_sample_queries
-from tdspa_torch.features.depth import VideoDepthEstimator
+from tdspa_torch.features.depth import VideoDepthEstimator, vda_model
 from tdspa_torch.features.dino import DinoFeatureExtractor, dino_config
 from tdspa_torch.features.tracks import PyramidalLKTracker
 from tdspa_torch.features.vit import ViTConfig
@@ -230,6 +234,14 @@ class InferencePipeline:
     extractor's ``ViTConfig``, else ``dino_model``'s. A passed model or
     extractor of another width is refused (``ValueError``): at construction
     where both are passed, else when the extractor is built.
+
+    ``depth_model`` names a released Video Depth Anything model
+    (``features/depth.py::VDA_MODELS``, e.g.
+    ``depth-anything/Video-Depth-Anything-Large``): the lazily built depth
+    stage is that model, its encoder with VDA's temporal head and 32-frame
+    windows; a ``vda_encoder`` other than that model's is refused
+    (``ValueError``). None builds ``vda_encoder`` (default ``vitb``) with the
+    from-scratch temporal head in 8-frame groups.
     """
 
     def __init__(
@@ -243,7 +255,8 @@ class InferencePipeline:
         num_support_tracks: int = 2048,
         tracking_grid_size: int = 64,
         dino_model: str = "facebook/dinov2-base",
-        vda_encoder: str = "vitb",
+        vda_encoder: str | None = None,
+        depth_model: str | None = None,
         track_provider=None,
         dino_extractor=None,
         depth_provider=None,
@@ -274,7 +287,17 @@ class InferencePipeline:
         self.num_support_tracks = num_support_tracks
         self.tracking_grid_size = tracking_grid_size
         self.dino_model_name = dino_model
-        self.vda_encoder = vda_encoder
+        # The depth stage's estimator arguments: a named VDA model's
+        # (ValueError here for an unknown name), else the encoder's with the
+        # from-scratch temporal head.
+        if depth_model is None:
+            self.depth_head = {"encoder": vda_encoder or "vitb"}
+        else:
+            self.depth_head = vda_model(depth_model)
+            if vda_encoder not in (None, self.depth_head["encoder"]):
+                raise ValueError(f"vda_encoder {vda_encoder!r} conflicts with depth_model "
+                                 f"{depth_model!r}, whose encoder is "
+                                 f"{self.depth_head['encoder']!r}")
         # Chunk size of the streamed upload (multiples of 8 keep the depth
         # extractor's 8-frame temporal groups aligned, as in JAX).
         self.upload_chunk_frames = upload_chunk_frames
@@ -371,7 +394,7 @@ class InferencePipeline:
     def depth_provider(self):
         if self._depth_provider is None:
             self._depth_provider = VideoDepthEstimator(
-                encoder=self.vda_encoder, residual_dtype=self.residual_dtype,
+                **self.depth_head, residual_dtype=self.residual_dtype,
                 output_scale=self.depth_output_scale, input_size=self.depth_input_size,
                 gelu_approximate=self.gelu_approximate, device=self.device,
             )
@@ -435,12 +458,12 @@ class InferencePipeline:
         t, h, w = video.shape[:3]
         chunk = self.upload_chunk_frames
         stream_dino = self.use_dino and isinstance(self.dino_extractor, DinoFeatureExtractor)
-        # Per-chunk depth equals the whole-video result only when chunk
-        # boundaries align with the estimator's temporal-attention groups.
+        # Depth streams only where the estimator's depth over the chunks
+        # equals its depth over the whole video.
         stream_depth = (
             self.use_depth
             and isinstance(self.depth_provider, VideoDepthEstimator)
-            and chunk % self.depth_provider.frame_chunk == 0
+            and self.depth_provider.chunk_invariant(chunk)
         )
         # One queue on the device: the stage's closing sync waits for the
         # upload, the tracking and every chunk's features, so none of them

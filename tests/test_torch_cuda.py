@@ -1222,3 +1222,65 @@ def test_depth_backbone_taps_match_the_eager_chain(cuda_device):
             seen[model.config.num_layers - 1][1], norm=_norm_args(model.layernorm),
             out_dtype=torch.float32)
     _close_rows(out, final, 1e-5, 0.0)
+
+
+# Video Depth Anything Large as published (``dpt_temporal.py``): the head's widths, its
+# motion modules' settings, VDA's window. ``output_conv2.2``'s bias is shifted as the
+# benchmark's ``spa3d_vdal`` configuration shifts it, so that the final ReLU is open.
+VDA_LARGE = {
+    "encoder": dict(hidden_size=1024, num_layers=24, num_heads=16, mlp_ratio=4, patch_size=14,
+                    image_size=518, layer_norm_eps=1e-6),
+    "layer_idxs": [4, 11, 17, 23], "features": 256, "out_channels": [256, 512, 1024, 1024],
+    "motion": dict(num_attention_heads=8, num_transformer_block=1, num_attention_blocks=2,
+                   temporal_max_len=32, norm_num_groups=32, group_norm_eps=1e-6,
+                   layer_norm_eps=1e-5, ff_mult=4),
+    "window": 32, "overlap": 10, "keyframes": [0, 12, 24, 25, 26, 27, 28, 29, 30, 31],
+    "input_size": 518,
+}
+VDA_OUTPUT_BIAS_OFFSET = 10.5
+VDA_GAP = 0.06
+
+
+@pytest.mark.cuda
+def test_vda_large_matches_the_plain_reference_on_one_window(cuda_device):
+    """VDA-L at its published widths (ViT-L/14 tapped after blocks 4, 11, 17, 23; the
+    head 256 wide; motion modules 1024, 1024, 256 and 256 wide) on one 32-frame window of
+    518 x 518 frames, the encoder's native 37 x 37 grid, so no position resize enters:
+    24 ViT attention launches, one window of 32 frame passes; the bf16 program against
+    the f32 plain reference on the card. Each frame's RMS gap within ``VDA_GAP`` of the RMS of
+    the reference's variation about the frame's mean, so that the constant the shifted
+    bias adds to every pixel does not dilute the gap."""
+    from tdspa_torch.features import depth
+    from tdspa_torch.kernels.attention import vit_attention
+    from tests.plain import vda as plain
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    laws = {"kernel": (None, 0.0), "bias": (0.02, 0.0), "scale": (0.1, 1.0),
+            "state": (1.0, 0.0)}
+    weights = {}
+    for name, (shape, law, fan_in) in plain.param_shapes(VDA_LARGE).items():
+        scale, offset = laws[law]
+        scale = fan_in ** -0.5 if scale is None else scale
+        weights[name] = torch.randn(shape, generator=gen, device=cuda_device) * scale + offset
+    weights[plain.OUTPUT_BIAS] += VDA_OUTPUT_BIAS_OFFSET
+    est = depth.VideoDepthEstimator(
+        **depth.vda_model("depth-anything/Video-Depth-Anything-Large"), device=cuda_device)
+    est.load_params(depth.convert_vda_params(weights, encoder="vitl"))
+    video = torch.randint(0, 256, (32, 518, 518, 3), generator=gen, device=cuda_device,
+                          dtype=torch.uint8)
+    depth.depth_window.windows = depth.depth_window.frame_passes = 0
+    before = vit_attention.launches
+    got = est(video)
+    assert vit_attention.launches - before == 24
+    assert (depth.depth_window.windows, depth.depth_window.frame_passes) == (1, 32)
+    del est
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        want = plain.VDA(VDA_LARGE, weights).video(video)
+    assert got.shape == want.shape == (32, 518, 518, 1)
+    assert float((want > 0).float().mean()) > 0.9
+    want = want.flatten(1)
+    gap = torch.linalg.vector_norm(got.flatten(1) - want, dim=1)
+    spread = torch.linalg.vector_norm(want - want.mean(1, keepdim=True), dim=1)
+    worst = float((gap / spread).max())
+    assert worst < VDA_GAP, worst

@@ -426,6 +426,35 @@ def test_only_aligned_own_stages_stream(tiny_front_ends, chunk, given_dino):
     assert video_dev is not None and video_dev.shape == (T, H, W, 3)
 
 
+def test_vda_depth_runs_once_on_the_whole_video(tiny_front_ends):
+    """``depth_model`` builds Video Depth Anything's head (motion modules and
+    32-frame windows) with the pipeline's knobs. Its windows overlap and read
+    keyframes across the upload chunks, so the depth is not streamed: it runs
+    once on the device video and equals the estimator's whole-video depth,
+    which depth over the 4-frame chunks would not."""
+    pipe, captured = _recording_pipeline(
+        upload_chunk_frames=4, depth_input_size=28,
+        depth_model="depth-anything/Video-Depth-Anything-Large")
+    results = pipe.run_on_frames(_video())
+    assert tiny_front_ends["depth"] == dict(
+        encoder="vitl", use_temporal=False, use_motion_modules=True,
+        residual_dtype=torch.float32, output_scale=1.0, input_size=28, gelu_approximate=False,
+        device=torch.device("cpu"))
+    est = pipe.depth_provider
+    assert est.head.motion_widths == (24, 32, 16, 16) and not est.head.use_temporal
+    assert "depth" in results["timings"]
+    whole = est(captured["video"])
+    torch.testing.assert_close(results["depth"], whole, **STREAM_TOL)
+    chunked = torch.cat([est(c) for c in captured["video"].split(4)])
+    assert float((chunked - whole).abs().max()) > 1e-4
+    with pytest.raises(ValueError, match="Video Depth Anything"):
+        InferencePipeline(depth_model="depth-anything/Video-Depth-Anything-Huge", device="cpu",
+                          model=tiny_model_3d(T, device="cpu"))
+    with pytest.raises(ValueError, match="conflicts with depth_model"):
+        InferencePipeline(depth_model="depth-anything/Video-Depth-Anything-Large",
+                          vda_encoder="vitb", device="cpu", model=tiny_model_3d(T, device="cpu"))
+
+
 def test_host_providers_match_jax(tmp_path):
     np.testing.assert_array_equal(make_query_grid(8, 16, 2), [[4, 2], [12, 2], [4, 6], [12, 6]])
     video = _video()
